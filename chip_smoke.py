@@ -7,24 +7,41 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero before the result lines are printed):
   1. the card's name and power limit;
-  2. build every kernel of the serving path from csrc/ with nvcc (ptxas -v);
+  2. build every kernel of the serving and training paths from csrc/ with
+     nvcc (ptxas -v), one nvcc per source, all started together;
   3. hold each kernel against its plain torch version on the card: a
      mid-size random scene at S=1 and S=9, the 64 densest tiles of the
-     full-width view, and the full-width view itself;
+     full-width view, and the full-width view itself (the backward kernel
+     with a random cotangent);
   4. serve a full-width refnerf model (150k splats, SH degree 3, all
      materials, 128^2 env, 800x800, S=9) through scripts/eval_torch.py's path:
      the model is written with the port's save_ply, 8 ground-truth views are
      rendered into a Blender-layout scene, and the eval path reloads both.
      Kernel launch counts are zeroed just before the eval and read right
      after it;
-  5. time the kernel (CUDA events) at the main path's shapes, beside its plain
-     version and the least time the card could take for the same work.
+  5. time the forward kernel (CUDA events) at the serve path's shapes, beside
+     its plain version and the least time the card could take for the work;
+  6. where one served view's time goes (torch.profiler);
+  7. train refnerf at full width through scripts/train_torch.py's path: an
+     800x800 Blender scene (8 train views with RGBA masks, 4 test views)
+     rendered from phase 4's model, the reader's own 100k-point random init,
+     capacity 1<<19, pair capacity 1<<20, SH degree 3, 128^2 env,
+     --schedule_scale 0.01 --iterations 60 (iterations 1-30 `initial`,
+     31-60 `surfel`); counts zeroed just before, read right after; the saved
+     PLY is evaluated through scripts/eval_torch.py;
+  8. learning check: 40 full-width `initial` steps from the same init with
+     densification and resets off must raise the train PSNR by >= 0.5 dB;
+  9. time the backward kernel at 800x800 (S=9 and S=1) beside its plain
+     version and its bound, and a training step of each stage (host clock,
+     torch.profiler device-busy share and top kernels).
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -44,6 +61,26 @@ PEAK_BYTES_PER_S = 3.35e12
 # rho2d, 2 compares/selects, 4 for the splat depth, 1 power, 1 exp,
 # 1 multiply + 1 min for alpha.
 HIT_TEST_FLOPS = 42
+
+
+def bwd_flops_per_hit(S):
+    """FP32 operations the backward needs per (pixel, contributing pair) in
+    csrc/rasterize_bwd.cu: the hit test again (42); log1p, T_i and w (5); the
+    NDC depth m (3); G = dL/dw (2*(S+6) + 15); gw and dalpha (8); dm/dd (3);
+    the depth gradient (15); dG and dopacity (2); the ray-splat chain rule to
+    dTu/dTv/dTw (54); dlin ((S+6)); the two carries (2); and one add per
+    gradient row into the pair's total (12+S+6)."""
+    return 161 + 4 * (S + 6)
+
+
+# Relative tolerance of the backward kernel against its plain version: the
+# per-pixel arithmetic is the same, the sum over a tile's 256 pixels is taken
+# in another order (warp butterflies + 8 warp partials vs torch.sum).
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-7
+TRAIN_W = TRAIN_H = 800
+TRAIN_VIEWS, TEST_VIEWS = 8, 4
+TRAIN_ITERS = 60
+TRAIN_TEST_MARKS = (30, 60)
 W = H = 800
 N_VIEWS = 8
 P_SPLATS = 150_000
@@ -104,6 +141,28 @@ def compare_tiles(np, out, ref, S, lay):
     return worst
 
 
+def compare_grads(np, torch, out, ref, S):
+    """Max abs error per gradient row group of the backward; raises past
+    BWD_RTOL x the group's largest magnitude + BWD_ATOL, or on a non-finite
+    value. Returns the largest error over all groups."""
+    from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, ROW_MEAN2D, ROW_OPACITY, ROW_TU, ROW_TV, ROW_TW
+
+    groups = {"dTu": (ROW_TU, ROW_TV), "dTv": (ROW_TV, ROW_TW), "dTw": (ROW_TW, ROW_MEAN2D),
+              "dmean2d": (ROW_MEAN2D, ROW_OPACITY), "dopacity": (ROW_OPACITY, ROW_LIN),
+              "dlin": (ROW_LIN, out.shape[1])}
+    check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(ref).all()), f"S={S}: non-finite gradients")
+    worst = 0.0
+    for name, (lo, hi) in groups.items():
+        err = float((out[:, lo:hi] - ref[:, lo:hi]).abs().max())
+        scale = float(ref[:, lo:hi].abs().max())
+        ok = err <= BWD_RTOL * scale + BWD_ATOL
+        print(f"    {name:9s} max|err| {err:.3e}  (largest |grad| {scale:.3e}, "
+              f"tol {BWD_RTOL:g} x that + {BWD_ATOL:g})  {'ok' if ok else 'FAIL'}")
+        check(ok, f"S={S} backward {name} outside tolerance")
+        worst = max(worst, err)
+    return worst
+
+
 def cuda_ms(torch, fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -151,7 +210,8 @@ def main() -> int:
     from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams
     from materialrefgs_torch.models.gaussian_model import PARAM_SHAPES, GaussianModel
     from materialrefgs_torch.models.scene import Scene
-    from materialrefgs_torch.ops.rasterize import api, tiles_fwd
+    from materialrefgs_torch.ops import nvcc
+    from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, acc_channels, out_layout
     from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
     from materialrefgs_torch.utils import png
@@ -159,6 +219,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kernel_fn = tiles_fwd.rasterize_tiles_fwd
+    bwd_fn = tiles_bwd.rasterize_tiles_bwd
 
     # ------------------------------------------------------------------ 1 --
     phase("1. card")
@@ -173,10 +234,15 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 2 --
     phase("2. build kernels (nvcc, sm_90a)")
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    lib_path, log = tiles_fwd.build_library()
-    print(f"{os.path.relpath(lib_path, REPO)} built in {time.perf_counter() - t0:.1f} s")
-    print(log.strip() or "(already built)")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd)))
+    print(f"both kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    for lib_path, log in builds:
+        print(f"{os.path.relpath(lib_path, REPO)}:")
+        print(log.strip() or "(already built)")
 
     # ------------------------------------------------------------------ 3 --
     phase("3. kernel vs plain version on the card")
@@ -200,6 +266,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return out.cpu().numpy(), ref.cpu().numpy(), (args, kw)
 
+    def run_bwd(ti, counts=None, seed=0):
+        """The backward kernel and its plain version on the forward's output
+        and a random cotangent; returns (max error, the kernel's inputs)."""
+        counts = ti.bins.tile_count if counts is None else counts
+        kw = dict(S=ti.S, grid_x=ti.grid_x, grid_y=ti.grid_y, W=ti.W, H=ti.H)
+        fwd = kernel_fn(ti.payload, ti.bins.tile_start, counts, **kw)
+        lay = out_layout(ti.S)
+        active = torch.amax(fwd[..., lay["n_contrib"][0]], dim=1).to(torch.int32)
+        cot = torch.randn(fwd.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        cot[..., lay["_channels"]:] = 0.0
+        bargs = (ti.payload, ti.bins.tile_start, counts, active, fwd, cot)
+        out = bwd_fn(*bargs, **kw)
+        torch.cuda.synchronize()
+        ref = tiles_bwd.rasterize_tiles_bwd_plain(*bargs, **kw)
+        torch.cuda.synchronize()
+        n_hits = float(fwd[..., lay["n_contrib"][0]].sum())
+        print(f"    backward, random cotangent: {int(active.max())} positions in the longest walk")
+        return compare_grads(np, torch, out, ref, ti.S), (bargs, kw, n_hits)
+
     from materialrefgs_torch.cameras import look_at_camera
 
     for S in (1, 9):
@@ -211,6 +296,7 @@ def main() -> int:
         print(f"  mid scene 384x288, S={S}: {int(ti.bins.num_pairs)} pairs, "
               f"densest tile {int(ti.bins.tile_count.max())} pairs")
         compare_tiles(np, out, ref, S, out_layout(S))
+        run_bwd(ti, seed=S)
 
     # The full-width scene at the main path's shapes (S=9 features).
     params, srng = bench_scene(np)
@@ -234,9 +320,11 @@ def main() -> int:
     print(f"  64 densest tiles of the 800x800 view: {int(only_dense.sum())} pairs, "
           f"{int(counts[dense].min())}..{int(counts[dense].max())} per tile")
     compare_tiles(np, out, ref, 9, lay9)
+    run_bwd(full, only_dense, seed=64)
     out, ref, (full_args, full_kw) = run_both(full)
     print(f"  whole 800x800 view: {int(full.bins.num_pairs)} pairs")
     full_err = compare_tiles(np, out, ref, 9, lay9)
+    bwd_err, bwd9 = run_bwd(full, seed=800)
     n_contrib_sum = float(out[..., lay9["n_contrib"][0]].sum())
     plain_ms = cuda_ms(torch, lambda: tiles_fwd.rasterize_tiles_fwd_plain(*full_args, **full_kw), 2)
 
@@ -270,8 +358,6 @@ def main() -> int:
             json.dump({"camera_angle_x": 0.8, "frames": fr}, f)
     for i in range(N_VIEWS):
         png.write_png(os.path.join(scene_path, "test", f"r_{i}.png"), np.zeros((H, W, 3), np.uint8))
-    import dataclasses
-
     scene = Scene.load(dataclasses.replace(mp, source_path=scene_path), device=dev)
     check(len(scene.test_cameras) == N_VIEWS, "scene reader lost test views")
     opts = RenderOptions(raster=api.RasterizeConfig(pair_capacity=PAIR_CAPACITY))
@@ -290,8 +376,6 @@ def main() -> int:
             save_png(os.path.join(scene_path, "test", f"r_{i}.png"), torch.clamp(pkg["render"], 0, 1))
     check(kernel_fn.launches - before == N_VIEWS, "GT rendering did not launch the kernel once per view")
     print(f"  {N_VIEWS} ground-truth views rendered and written in {time.perf_counter() - t0:.1f} s")
-
-    import importlib.util
 
     spec = importlib.util.spec_from_file_location("eval_torch", os.path.join(REPO, "scripts", "eval_torch.py"))
     eval_torch = importlib.util.module_from_spec(spec)
@@ -355,19 +439,210 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / reps:9.3f}  {e.count // reps:5d}  {e.key[:90]}")
 
-    record = {"kernels": [{
-        "name": "rasterize_tiles_fwd",
-        "route": "cuda",
-        "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
-        "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
-        "launches": launches,
-        "max_abs_err": full_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}
+    # ------------------------------------------------------------------ 7 --
+    phase("7. train refnerf at full width through scripts/train_torch.py")
+    train_scene = os.path.join(work, "train_scene")
+    run_path = os.path.join(work, "train_run")
+    views = ring_views(np, TRAIN_VIEWS + TEST_VIEWS, radius=3.4)
+    splits = {"train": views[:TRAIN_VIEWS], "test": views[TRAIN_VIEWS:]}
+    t0 = time.perf_counter()
+    for split, mats in splits.items():
+        os.makedirs(os.path.join(train_scene, split))
+        frames = [{"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()} for i, m in enumerate(mats)]
+        with open(os.path.join(train_scene, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+        for i in range(len(mats)):
+            png.write_png(os.path.join(train_scene, split, f"r_{i}.png"),
+                          np.zeros((TRAIN_H, TRAIN_W, 4), np.uint8))
+    tscene = Scene.load(dataclasses.replace(mp, source_path=train_scene), device=dev)
+    with torch.no_grad():
+        for split, cams in (("train", tscene.train_cameras), ("test", tscene.test_cameras)):
+            for i, cam in enumerate(cams):
+                pkg = render_surfel(model, cam, white, mips, opts)
+                check(int(pkg["overflow"]) == 0, f"training GT {split} view {i} overflows")
+                rgba = torch.cat([pkg["render"], pkg["rend_alpha"]], dim=-1)
+                arr = (np.clip(rgba.cpu().numpy(), 0, 1) * 255 + 0.5).astype(np.uint8)
+                png.write_png(os.path.join(train_scene, split, f"r_{i}.png"), arr)
+    print(f"  {TRAIN_VIEWS} train + {TEST_VIEWS} test views at {TRAIN_W}x{TRAIN_H} (RGBA, alpha = rend_alpha) "
+          f"written in {time.perf_counter() - t0:.1f} s")
+
+    spec = importlib.util.spec_from_file_location("train_torch", os.path.join(REPO, "scripts", "train_torch.py"))
+    train_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_torch)
+    train_argv = ["-s", train_scene, "-m", run_path, "--schedule_scale", "0.01",
+                  "--iterations", str(TRAIN_ITERS), "--capacity", str(1 << 19),
+                  "--pair_capacity", str(1 << 20), "--log_every", "1",
+                  "--test_iterations", *map(str, TRAIN_TEST_MARKS)]
+    print("  python scripts/train_torch.py " + " ".join(train_argv))
+    torch.cuda.reset_peak_memory_stats()
+    kernel_fn.launches = 0  # counts of this slice's main path only
+    bwd_fn.launches = 0
+    t0 = time.perf_counter()
+    res = train_torch.main(train_argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(f"  peak device memory of the training run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    train_fwd, train_bwd = kernel_fn.launches, bwd_fn.launches
+    trainer = res["trainer"]
+    log = trainer.metrics_log
+    print(f"  {len(log)} steps in {train_s:.1f} s; kernel launches: forward {train_fwd}, backward {train_bwd}")
+    for m in log:
+        if m["iteration"] in (1, 5, 6, 10, 30, 31, 40, 41, 50, 51, 60) or m["overflow_redone"] > 0:
+            print(f"    it {m['iteration']:3d} {m['stage']:7s} loss {m['loss']:.5f} psnr {m['psnr']:.3f} "
+                  f"n_alive {m['n_alive']} overflow {m['overflow']:.0f} (redone: {m['overflow_redone']:.0f})")
+    check([m["iteration"] for m in log] == list(range(1, TRAIN_ITERS + 1)), "training skipped iterations")
+    check([m["stage"] for m in log] == ["initial"] * 30 + ["surfel"] * 30, "stages are not 1-30 initial, 31-60 surfel")
+    check(all(math.isfinite(v) for m in log for k, v in m.items() if isinstance(v, float)), "non-finite loss or metric")
+    for name, prm in trainer.state.params().items():
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after training")
+    n_test = TEST_VIEWS * len(TRAIN_TEST_MARKS)
+    n_redo = sum(m["renders_redone"] for m in log)
+    check(train_bwd == TRAIN_ITERS, f"backward kernel launched {train_bwd} times in {TRAIN_ITERS} steps")
+    check(train_fwd == TRAIN_ITERS + n_redo + n_test,
+          f"forward kernel launched {train_fwd} times for {TRAIN_ITERS} steps + {n_redo} redone "
+          f"renders + {n_test} test renders")
+    alive = [m["n_alive"] for m in log]
+    check(len(set(alive)) > 1, "densify/prune never changed n_alive")
+    ovf = [m["overflow"] for m in log]
+    redone = [m["overflow_redone"] for m in log]
+    check(all(v == 0 for v in ovf[-10:]), "binning overflow in the last 10 steps")
+    if any(v > 0 for v in ovf + redone):
+        check(trainer.raster_cfg.pair_capacity > (1 << 20), "an overflow was not escalated")
+    print(f"  n_alive {alive[0]} -> {alive[-1]} (min {min(alive)}, max {max(alive)}); "
+          f"steps applied truncated {sum(v > 0 for v in ovf)}, steps redone after an escalation "
+          f"{sum(v > 0 for v in redone)}, pair capacity now {trainer.raster_cfg.pair_capacity}")
+    for mark, mt in res["test"].items():
+        print(f"  test psnr at {mark}: {mt['psnr']:.3f} dB over {len(mt['per_view_psnr'])} views")
+        check(math.isfinite(mt["psnr"]), f"non-finite test PSNR at {mark}")
+    check(res["ply"] is not None and os.path.exists(res["ply"]), "no PLY saved")
+    ev = eval_torch.main(["-m", run_path, "-s", train_scene, "--skip_train"])["test"]
+    print(f"  saved PLY through scripts/eval_torch.py: psnr {ev['psnr']:.3f} dB, ssim {ev['ssim']:.5f}, "
+          f"{len(ev['per_view_psnr'])} views")
+    check(math.isfinite(ev["psnr"]) and len(ev["per_view_psnr"]) == TEST_VIEWS, "eval of the trained PLY failed")
+    step_wall = [b["wall"] - a["wall"] for a, b in zip(log, log[1:])]
+    for stage, lo, hi in (("initial", 10, 29), ("surfel", 40, 59)):
+        w = sorted(step_wall[lo:hi])
+        print(f"  host s/step during the run, {stage} (iterations {lo + 2}-{hi + 1}, median): {w[len(w) // 2]:.4f}")
+
+    # ------------------------------------------------------------------ 8 --
+    phase("8. learning check: 40 full-width initial steps, densification off")
+    from materialrefgs_torch.models import gaussian_model as gm
+    from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+    from materialrefgs_torch.train.trainer import Trainer
+
+    # The reader's init as the training run read it (points3d.ply on disk).
+    pcd = Scene.load(dataclasses.replace(mp, source_path=train_scene), device=dev).info.point_cloud
+    _, lpipe, lopt = cfg.preset_refnerf()
+    lopt = dataclasses.replace(cfg.scale_schedule(lopt, 0.01), init_until_iter=10**6,
+                               densify_from_iter=10**9, opacity_reset_interval=10**9)
+    lmodel = gm.create_from_points(pcd.points, pcd.colors, capacity=1 << 19,
+                                   rng=np.random.default_rng(3407), device=dev)
+    ltrainer = Trainer(lmodel, tscene.train_cameras,
+                       [tscene.train_image(i) for i in range(TRAIN_VIEWS)], lopt, lpipe,
+                       cameras_extent=tscene.cameras_extent, bg_color=(1.0, 1.0, 1.0),
+                       raster_cfg=RasterizeConfig(pair_capacity=1 << 20))
+    ltrainer.train(40, log_every=1)
+    psnrs = [m["psnr"] for m in ltrainer.metrics_log]
+    first5, last5 = float(np.mean(psnrs[:5])), float(np.mean(psnrs[-5:]))
+    print(f"  train PSNR: first 5 steps {first5:.3f} dB, last 5 steps {last5:.3f} dB "
+          f"(+{last5 - first5:.3f} dB); n_alive {ltrainer.metrics_log[-1]['n_alive']}")
+    check(last5 >= first5 + 0.5, "training did not raise the train PSNR by 0.5 dB")
+
+    # ------------------------------------------------------------------ 9 --
+    phase("9. backward kernel time at 800x800, and a training step")
+    (bargs9, bkw9, hits9) = bwd9
+    with torch.no_grad():
+        full1 = api.tile_inputs(
+            t["xyz"], torch.exp(t["scaling"]), t["rotation"], torch.sigmoid(t["opacity"][:, 0]),
+            colors, feats9[:, :1], full_cam, config=api.RasterizeConfig(pair_capacity=PAIR_CAPACITY),
+        )
+    _, bwd1 = run_bwd(full1, seed=801)
+    bwd_times = {}
+    for S, (bargs, bkw, hits) in ((9, bwd9), (1, bwd1)):
+        for _ in range(3):
+            bwd_fn(*bargs, **bkw)
+        ms_b = cuda_ms(torch, lambda: bwd_fn(*bargs, **bkw), 20)
+        n_p = int(bargs[1][-1])
+        nrow = ROW_LIN + acc_channels(S)
+        T_ = bkw["grid_x"] * bkw["grid_y"]
+        c_out = bargs[4].shape[-1]
+        b_bytes = 4 * (2 * n_p * nrow + 2 * T_ * 256 * c_out + 3 * T_ + 1)
+        b_flops = bwd_flops_per_hit(S) * hits
+        tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
+        bwd_times[S] = dict(ms=ms_b, bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations",
+                            pairs=n_p, bytes=b_bytes, flops=b_flops, hits=hits, tb=tb_, to=to_)
+    plain_bwd_ms = cuda_ms(torch, lambda: tiles_bwd.rasterize_tiles_bwd_plain(*bargs9, **bkw9), 1)
+    for S in (9, 1):
+        b = bwd_times[S]
+        print(f"bwd kernel ms per 800x800 view, S={S}: {b['ms']:.4f} ({b['pairs']} pairs)")
+        print(f"bwd bound ms, S={S}: {b['bound']:.4f} (by {b['by']}: {b['bytes'] / 1e6:.1f} MB -> {b['tb']:.4f} ms, "
+              f"{b['flops'] / 1e9:.2f} GFLOP over {b['hits']:.0f} needed (pixel, pair) walks -> {b['to']:.4f} ms)")
+    print(f"bwd launches per training step: {train_bwd / TRAIN_ITERS:.0f}")
+    print(f"bwd plain version ms, S=9: {plain_bwd_ms:.2f}")
+    print("bwd library call: none computes this function")
+
+    def time_steps(tr, stage, first_it, n):
+        step = tr._step_fn(stage)
+        cams, imgs = tr.cameras, tr.images
+        walls = []
+        for k in range(n):
+            extra = tr._build_extra(first_it + k, k % len(cams))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            met = step(tr.state, cams[k % len(cams)], imgs[k % len(cams)], extra)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return walls
+
+    for stage, tr, it0 in (("initial", ltrainer, 41), ("surfel", trainer, 61)):
+        walls = time_steps(tr, stage, it0, 5)
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            t1 = time.perf_counter()
+            time_steps(tr, stage, it0 + 5, 3)
+            prof_ms = (time.perf_counter() - t1) * 1e3 / 3
+        ev_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev_) / 1e3 / 3
+        print(f"training step, {stage}, 800x800, {int(tr.state.model.n_alive)} splats: "
+              f"{float(np.median(walls)):.4f} s/step (median of 5, host clock, synchronized); "
+              f"profiled {prof_ms:.2f} ms/step with {busy:.2f} ms of device kernels "
+              f"-> device busy {100 * busy / prof_ms:.1f} %")
+        print("  top device kernels (ms per step, launches per step):")
+        for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"  {e.self_device_time_total / 1e3 / 3:9.3f}  {e.count // 3:5d}  {e.key[:90]}")
+
+    record = {"kernels": [
+        {
+            "name": "rasterize_tiles_fwd",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
+            "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
+            "launches": train_fwd,
+            "max_abs_err": full_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "rasterize_tiles_bwd",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
+            "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
+            "launches": train_bwd,
+            "max_abs_err": bwd_err,
+            "ms": bwd_times[9]["ms"],
+            "plain_ms": plain_bwd_ms,
+            "bound_ms": bwd_times[9]["bound"],
+            "bound_by": bwd_times[9]["by"],
+            "library_ms": None,
+        },
+    ]}
+    print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
+          f"backward {train_bwd}")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
 """Config dataclasses mirroring the reference CLI groups
 (arguments/__init__.py ModelParams:60, PipelineParams:96,
-OptimizationParams:110) plus the run_*.sh stage presets, and the
-cfg_args.json dump/load. The port keeps its own copy of the JAX package's
-framework-free config so the two cannot import each other; the schedule
-scaling and the reflection CLI come with the training slice.
+OptimizationParams:110) plus the run_*.sh stage presets, the schedule
+scaling, the reflection CLI and the cfg_args.json dump/load. The port keeps
+its own copy of the JAX package's framework-free config so the two cannot
+import each other.
 """
 from __future__ import annotations
 
@@ -311,6 +311,117 @@ def preset_glossy() -> tuple[ModelParams, PipelineParams, OptimizationParams]:
             mono_normal_coef=0.01,
         ),
     )
+
+
+# Schedule fields scaled by scale_schedule(). Everything iteration-valued:
+# stage boundaries, loss-start gates, densify/reset cadences, LR horizon.
+_SCHEDULE_INT_FIELDS = (
+    "iterations",
+    "position_lr_max_steps",
+    "densification_interval",
+    "opacity_reset_interval",
+    "densify_from_iter",
+    "densify_until_iter",
+    "init_until_iter",
+    "volume_render_until_iter",
+    "normal_smooth_from_iter",
+    "normal_smooth_until_iter",
+    "indirect_from_iter",
+    "feature_rest_from_iter",
+    "normal_prop_until_iter",
+    "normal_prop_interval",
+    "opac_lr0_interval",
+    "densification_interval_when_prop",
+    "normal_loss_start",
+    "dist_loss_start",
+    "sh_ladder_interval",
+    "multi_view_weight_from_iter",
+    "basecolor_warp_from_iter",
+    "perceptual_loss_start_iter",
+    "rghmtl_warp_loss_start_iter",
+    "ref_score_start_iter",
+    "env_densify_interval",
+    "env_reset_interval",
+    "env_update_until_iter",
+    "albedo_smoothness_start_iter",
+)
+_SCHEDULE_LADDER_FIELDS = ("normal_weight_ladder", "normal_gamma_ladder")
+
+
+def scale_schedule(opt: "OptimizationParams", factor: float) -> "OptimizationParams":
+    """Uniformly compress/stretch the training curriculum.
+
+    Multiplies every iteration-valued hyperparameter (stage boundaries, loss
+    start gates, densify/reset cadences, ladder thresholds, the position-LR
+    horizon) by `factor`, preserving the reference's stage STRUCTURE
+    (run_refnerf.sh:31-44) at a different total budget. Intervals are clamped
+    to >=1; ladder thresholds scale; weights/LRs are untouched. factor=1 is
+    the identity.
+    """
+    if factor == 1.0:
+        return opt
+    if factor <= 0:
+        raise ValueError(f"schedule scale must be positive, got {factor}")
+    updates: dict = {}
+    for name in _SCHEDULE_INT_FIELDS:
+        v = getattr(opt, name)
+        scaled = int(round(v * factor))
+        # Cadences of 0 would mean "every iteration" via `% interval`;
+        # keep any positive cadence/boundary at >=1 after scaling.
+        if v > 0:
+            scaled = max(scaled, 1)
+        updates[name] = scaled
+    for name in _SCHEDULE_LADDER_FIELDS:
+        ladder = getattr(opt, name)
+        updates[name] = tuple(
+            (int(round(thr * factor)), val) for thr, val in ladder
+        )
+    return dataclasses.replace(opt, **updates)
+
+
+# ----------------------------------------------------------- reflection CLI --
+
+
+def add_param_flags(ap) -> None:
+    """Reflection CLI (reference ParamGroup, arguments/__init__.py:20-51):
+    every field of ModelParams/PipelineParams/OptimizationParams becomes a
+    `--<name>` flag (bools get a `--no-<name>` negation). All default to
+    None = "keep the preset's value"; apply_param_flags folds explicit
+    flags back into the dataclasses."""
+    import argparse
+
+    taken = {s for a in ap._actions for s in a.option_strings}
+    for inst in (ModelParams(), PipelineParams(), OptimizationParams()):
+        for f in dataclasses.fields(type(inst)):
+            flag = f"--{f.name}"
+            if flag in taken or f.name in ("source_path", "model_path"):
+                continue
+            taken.add(flag)
+            d = getattr(inst, f.name)
+            if isinstance(d, bool):
+                ap.add_argument(
+                    flag, default=None, action=argparse.BooleanOptionalAction
+                )
+            elif isinstance(d, (int, float, str)):
+                ap.add_argument(flag, default=None, type=type(d))
+            # tuple-valued ladders stay config-file-only (like the
+            # reference's non-flag class attributes)
+
+
+def apply_param_flags(args, model: ModelParams, pipe: PipelineParams,
+                      opt: OptimizationParams):
+    """Fold explicitly-passed reflection flags over the preset values
+    (get_combined_args precedence: CLI > preset)."""
+
+    def upd(inst):
+        kw = {}
+        for f in dataclasses.fields(type(inst)):
+            v = getattr(args, f.name, None)
+            if v is not None and not isinstance(getattr(inst, f.name), tuple):
+                kw[f.name] = v
+        return dataclasses.replace(inst, **kw) if kw else inst
+
+    return upd(model), upd(pipe), upd(opt)
 
 
 # ------------------------------------------------------------- cfg_args I/O --

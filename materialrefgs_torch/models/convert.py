@@ -1,8 +1,10 @@
-"""Carry weights across from the JAX package's model state.
+"""Carry weights and training state across from the JAX package.
 
 The caller hands over plain numpy arrays (`np.asarray` of each leaf of a JAX
-`GaussianParams`, the `alive` mask, `active_sh_degree`, and an
-`EnvLightParams.base`); this module imports nothing of the JAX package.
+`GaussianParams`, the `alive` mask, `active_sh_degree`, an
+`EnvLightParams.base`, and for a `TrainState` the model's densification
+statistics, both cubemaps and optax `ScaleByAdamState` mu/nu/count); this
+module imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -35,7 +37,49 @@ def env_light_from_numpy(
     base: np.ndarray, device: str | torch.device | None = None
 ) -> EnvLightParams:
     """(6, R, R, 3) cubemap logits -> EnvLightParams on `device`."""
-    arr = np.asarray(base, np.float32)
+    arr = np.array(base, np.float32)  # a writable copy for torch
     if arr.ndim != 4 or arr.shape[0] != 6 or arr.shape[3] != 3:
         raise ValueError(f"cubemap logits must be (6, R, R, 3), got {arr.shape}")
     return EnvLightParams(torch.as_tensor(arr, device=resolve_device(device)))
+
+
+def train_state_from_numpy(
+    params: dict[str, np.ndarray],
+    alive: np.ndarray,
+    active_sh_degree: int,
+    stats: dict[str, np.ndarray],
+    env1: np.ndarray,
+    env2: np.ndarray,
+    adam_mu: dict[str, np.ndarray],
+    adam_nu: dict[str, np.ndarray],
+    adam_count: int,
+    step: int,
+    opacity_lr_scale: float = 1.0,
+    max_sh_degree: int = 3,
+    device: str | torch.device | None = None,
+):
+    """A JAX `TrainState` as the port's: `stats` holds xyz_gradient_accum,
+    denom and max_radii2d; `adam_mu`/`adam_nu` map every parameter name of
+    the model plus "env1"/"env2" to the optax moments."""
+    from materialrefgs_torch.train.trainer import TrainState
+    from materialrefgs_torch.train.optim import Adam
+
+    model = gaussian_model_from_numpy(params, alive, active_sh_degree, max_sh_degree, device)
+    with torch.no_grad():
+        for name in ("xyz_gradient_accum", "denom", "max_radii2d"):
+            getattr(model, name).copy_(torch.as_tensor(np.array(stats[name], np.float32)))
+    state = TrainState(
+        model=model,
+        env1=env_light_from_numpy(env1, model.device),
+        env2=env_light_from_numpy(env2, model.device),
+        adam=None,
+        step=int(step),
+        opacity_lr_scale=float(opacity_lr_scale),
+    )
+    adam = Adam({k: v.detach() for k, v in state.params().items()})
+    for k in adam.names:
+        adam.mu[k].copy_(torch.as_tensor(np.array(adam_mu[k], np.float32)))
+        adam.nu[k].copy_(torch.as_tensor(np.array(adam_nu[k], np.float32)))
+    adam.count = int(adam_count)
+    state.adam = adam
+    return state

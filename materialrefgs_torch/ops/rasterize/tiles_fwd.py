@@ -15,15 +15,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from materialrefgs_torch.ops import nvcc
 from materialrefgs_torch.ops.rasterize.layout import (
     ALPHA_MAX,
     ALPHA_MIN,
@@ -46,60 +41,13 @@ from materialrefgs_torch.ops.rasterize.layout import (
     out_layout,
 )
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PKG_DIR / "csrc" / "rasterize_fwd.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+SOURCE = nvcc.CSRC / "rasterize_fwd.cu"
 MAX_S = 9  # feature widths the kernel is instantiated for: 1..MAX_S
-# -fmad=false keeps every multiply and add separately rounded, as the plain
-# torch version's elementwise ops are, so the two agree bit for bit except
-# where libdevice and torch disagree.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and on PATH)")
-    return found
-
-
-def build_library() -> tuple[Path, str]:
-    """Compile csrc/rasterize_fwd.cu into BUILD_DIR (once per source/flags
-    hash). Returns (library path, compiler output); the output holds ptxas's
-    register/shared-memory report when this call compiled."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"librasterize_fwd_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+    lib = nvcc.load(SOURCE)
     fn = lib.rasterize_tiles_fwd
     fn.argtypes = [
         ctypes.c_void_p,  # payload

@@ -31,6 +31,7 @@ from materialrefgs_torch.utils.transforms import (
     linear_to_srgb,
     normalize,
     reflect,
+    relu0,
 )
 
 
@@ -68,7 +69,7 @@ def _indirect_light(pc: GaussianModel, camera: Camera, opts: RenderOptions):
     normals, dir_pp = _gaussian_normals(pc, camera)
     refl = reflect(-dir_pp, normals)
     shs = pc.get_indirect().transpose(1, 2)  # (P, 3, K)
-    indirect = torch.clamp(sh_utils.eval_sh(pc.max_sh_degree, shs, normalize(refl)), min=0.0)
+    indirect = relu0(sh_utils.eval_sh(pc.max_sh_degree, shs, normalize(refl)))
     return indirect, normals
 
 
@@ -99,7 +100,7 @@ def _unpack_regularizations(out: dict, camera: Camera, opts: RenderOptions, rend
     else:
         surf_depth = depth_expected * (1 - opts.depth_ratio) + opts.depth_ratio * depth_median
 
-    surf_normal = depth_to_normal(camera, surf_depth) * render_alpha
+    surf_normal = depth_to_normal(camera, surf_depth) * render_alpha.detach()
 
     return {
         "rend_alpha": render_alpha,
@@ -121,13 +122,15 @@ def render_initial(
     camera: Camera,
     bg_color: torch.Tensor,
     opts: RenderOptions = RenderOptions(),
+    mean2d_offset: torch.Tensor | None = None,
 ) -> dict:
-    """Plain 2DGS render (gaussian_renderer/__init__.py:94-222)."""
+    """Plain 2DGS render (gaussian_renderer/__init__.py:94-222).
+    mean2d_offset: see ops/rasterize/api.rasterize (densification stats)."""
     colors = pc.get_colors(camera.camera_center)
     feats = torch.zeros((pc.capacity, 1), dtype=torch.float32, device=pc.device)
     out = rasterize(
         pc.xyz, pc.get_scaling, pc.get_rotation, pc.get_opacity[:, 0], colors, feats,
-        camera, _zeros3(pc.device), config=opts.raster,
+        camera, _zeros3(pc.device), config=opts.raster, mean2d_offset=mean2d_offset,
     )
     regs = _unpack_regularizations(out, camera, opts, None)
     image = out["render"]
@@ -149,9 +152,11 @@ def render_surfel(
     bg_color: torch.Tensor,
     envmap: EnvLightMips,
     opts: RenderOptions = RenderOptions(),
+    mean2d_offset: torch.Tensor | None = None,
 ) -> dict:
     """Deferred-shading render (gaussian_renderer/__init__.py:225-520),
-    without traced visibility or indirect light (the surfel2 slice)."""
+    without traced visibility or indirect light (the surfel2 slice).
+    mean2d_offset: see ops/rasterize/api.rasterize (densification stats)."""
     colors = pc.get_colors(camera.camera_center)
     refl = pc.get_refl
     rough = pc.get_rough
@@ -162,7 +167,7 @@ def render_surfel(
     feats = torch.cat([refl, rough, ori_color, indirect, distance], dim=-1)
     out = rasterize(
         pc.xyz, pc.get_scaling, pc.get_rotation, pc.get_opacity[:, 0], colors, feats,
-        camera, _zeros3(pc.device), config=opts.raster,
+        camera, _zeros3(pc.device), config=opts.raster, mean2d_offset=mean2d_offset,
     )
 
     f = out["feature"]

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from materialrefgs_torch.utils.transforms import relu0
+
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
 C2 = (
@@ -92,7 +94,7 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does: +0.5 then clamp to >= 0.
     sh: (..., 3, K), dirs: (..., 3) (need not be normalized)."""
     d = dirs / torch.clamp(torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
-    return torch.clamp(eval_sh(deg, sh, d) + 0.5, min=0.0)
+    return relu0(eval_sh(deg, sh, d) + 0.5)
 
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:

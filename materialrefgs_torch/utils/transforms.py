@@ -4,9 +4,12 @@ Numerical contracts mirror the reference's utils/general_utils.py and
 utils/graphics_utils.py:
   - quat_to_rotmat: utils/general_utils.py:78 (build_rotation), quaternion in
     (w, x, y, z) order, normalized first.
+  - expon_lr: utils/general_utils.py:29 (get_expon_lr_func).
   - srgb <-> linear: utils/graphics_utils.py:102-119.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,6 +41,41 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))
+
+
+def relu0(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with jnp.maximum's gradient: half to each side at a tie
+    (torch.clamp passes all of it), so exact zeros get the JAX package's
+    gradient."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def expon_lr(
+    step: int,
+    lr_init: float,
+    lr_final: float,
+    lr_delay_steps: int = 0,
+    lr_delay_mult: float = 1.0,
+    max_steps: int = 1000000,
+) -> float:
+    """Log-linear lr interpolation with optional delayed warmup, evaluated in
+    float32 as the JAX package does (reference get_expon_lr_func, including
+    the 0-lr behavior when step < 0 or lr_init == lr_final == 0)."""
+    f32 = torch.float32
+    st = torch.tensor(float(step), dtype=f32)
+    if lr_init == 0.0 and lr_final == 0.0:
+        return 0.0
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+            0.5 * math.pi * torch.clamp(st / lr_delay_steps, 0, 1)
+        )
+    else:
+        delay_rate = torch.tensor(1.0, dtype=f32)
+    t = torch.clamp(st / max_steps, 0, 1)
+    log_lerp = torch.exp(
+        math.log(max(lr_init, 1e-32)) * (1 - t) + math.log(max(lr_final, 1e-32)) * t
+    )
+    return 0.0 if step < 0 else float(delay_rate * log_lerp)
 
 
 def linear_to_srgb(linear: torch.Tensor, eps: float = _F32_EPS) -> torch.Tensor:

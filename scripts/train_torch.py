@@ -1,0 +1,239 @@
+"""Training CLI of the PyTorch/CUDA port (the counterpart of scripts/train.py)
+for the refnerf curriculum up to the start of `surfel2`: stages `initial`
+and `surfel` on Blender-layout scenes. Runs on the CUDA card unless
+--device cpu is given.
+
+Usage:
+  python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet \
+      --iterations 20000
+  python scripts/train_torch.py -s <scene> -m <out> --schedule_scale 0.01 \
+      --iterations 60 --device cpu
+
+Writes point_cloud/iteration_N/point_cloud.ply (+ the env maps) that
+scripts/eval_torch.py loads, cfg_args.json, train_log.json, and checkpoints
+(chkpnt{N}.pt). What the later slices of the port bring raises
+NotImplementedError: --dp, --metric3d_path, --ref_score_path, --start_ply
+with an env cloud, and iterations past indirect_from_iter (surfel2).
+"""
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+
+
+def load_masks(mask_dir, train_infos, hw):
+    """Foreground masks from RGBA PNGs (last channel > 128), one per train
+    view, or None when any is missing (reference get_mask_dir,
+    train_glossy.py:101-134)."""
+    from materialrefgs_torch.utils import png
+
+    masks = []
+    for ci in train_infos:
+        p = os.path.join(mask_dir, ci.image_name + ".png")
+        if not os.path.exists(p):
+            return None
+        arr = png.read_png(p)
+        if arr.shape[:2] != tuple(hw):
+            raise NotImplementedError(
+                "masks of another size than the images need a resampler; it "
+                "comes with the COLMAP/refreal slice of the port"
+            )
+        masks.append((arr[..., -1] > 128).astype(np.float32))
+    return masks
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-s", "--source_path", required=True)
+    ap.add_argument("-m", "--model_path", required=True)
+    ap.add_argument("--preset", default="refnerf", choices=["refnerf", "refreal", "glossy"])
+    ap.add_argument("--iterations", type=int, default=None)
+    ap.add_argument("--schedule_scale", type=float, default=1.0,
+                    help="uniformly compress/stretch the whole curriculum by this "
+                         "factor; applied before --iterations and explicit flags")
+    ap.add_argument("--capacity", type=int, default=1 << 19)
+    ap.add_argument("--pair_capacity", type=int, default=1 << 20)
+    ap.add_argument("--save_iterations", type=int, nargs="+", default=None)
+    ap.add_argument("--test_iterations", type=int, nargs="+", default=None)
+    ap.add_argument("--test_every", type=int, default=0,
+                    help="evaluate test-set PSNR every N iterations")
+    ap.add_argument("--checkpoint_iterations", type=int, nargs="+", default=None)
+    ap.add_argument("--checkpoint_every", type=int, default=0)
+    ap.add_argument("--start_checkpoint", default=None,
+                    help="run directory holding chkpnt{N}.pt to resume from")
+    ap.add_argument("--start_ply", default=None,
+                    help="point_cloud/iteration_N dir to initialize model + env maps "
+                         "from (fresh optimizer state), continuing at --start_iter")
+    ap.add_argument("--start_iter", type=int, default=0)
+    ap.add_argument("--mask_dir", default=None,
+                    help="dir of foreground-mask PNGs (last channel > 128); "
+                         "default: the scene's train/ dir for refnerf")
+    ap.add_argument("--metric3d_path", default=None)
+    ap.add_argument("--ref_score_path", default=None)
+    ap.add_argument("--dp", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=3407)
+    ap.add_argument("--log_every", type=int, default=100)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to train (default: the CUDA card)")
+
+    from materialrefgs_torch import config as cfg
+
+    cfg.add_param_flags(ap)
+    args = ap.parse_args(argv)
+    if args.dp:
+        raise NotImplementedError("--dp (camera-batch data parallelism) comes with the parallel slice of the port")
+    if args.metric3d_path:
+        raise NotImplementedError("--metric3d_path (mono-normal priors) comes with the multi-view/volume slice of the port")
+    if args.ref_score_path:
+        raise NotImplementedError("--ref_score_path (ref-score masks) comes with the multi-view/volume slice of the port")
+    if args.start_ply and os.path.exists(os.path.join(args.start_ply, "env_point_cloud.ply")):
+        raise NotImplementedError("--start_ply with an env cloud (env-GS) comes with the surfel2 slice of the port")
+
+    import torch
+
+    from materialrefgs_torch import resolve_device
+    from materialrefgs_torch.evaluate import render_set
+    from materialrefgs_torch.models import gaussian_io
+    from materialrefgs_torch.models import gaussian_model as gm
+    from materialrefgs_torch.models.env_light import EnvLightMips
+    from materialrefgs_torch.models.scene import Scene
+    from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+    from materialrefgs_torch.render.renderers import RenderOptions
+    from materialrefgs_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from materialrefgs_torch.train.stages import select_stage
+    from materialrefgs_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    preset = {"refnerf": cfg.preset_refnerf, "refreal": cfg.preset_refreal,
+              "glossy": cfg.preset_glossy}[args.preset]
+    model_params, pipe, opt = preset()
+    if args.schedule_scale != 1.0:
+        opt = cfg.scale_schedule(opt, args.schedule_scale)
+        print(f"[schedule] curriculum scaled x{args.schedule_scale}: iterations={opt.iterations}, "
+              f"init_until={opt.init_until_iter}, indirect_from={opt.indirect_from_iter}")
+    model_params, pipe, opt = cfg.apply_param_flags(args, model_params, pipe, opt)
+    model_params = dataclasses.replace(model_params, source_path=args.source_path,
+                                       model_path=args.model_path)
+    if args.iterations:
+        opt = dataclasses.replace(opt, iterations=args.iterations)
+    cfg.dump_config(args.model_path, model_params, pipe, opt,
+                    extra={"preset": args.preset, "capacity": args.capacity,
+                           "pair_capacity": args.pair_capacity, "seed": args.seed})
+
+    print(f"Loading scene from {args.source_path} ...")
+    scene = Scene.load(model_params, device=device)
+    n_train = len(scene.train_cameras)
+    images = [scene.train_image(i) for i in range(n_train)]
+    H, W = images[0].shape[:2]
+    print(f"{n_train} train cameras ({W}x{H}), extent {scene.cameras_extent:.2f}")
+
+    mask_dir = args.mask_dir
+    if mask_dir is None:
+        auto = {"glossy": "rgb", "refnerf": "train", "refreal": "mask"}[args.preset]
+        cand = os.path.join(args.source_path, auto)
+        mask_dir = cand if os.path.isdir(cand) else None
+    masks = load_masks(mask_dir, scene.info.train_cameras, (H, W)) if mask_dir else None
+    if masks is not None:
+        print(f"Loaded {len(masks)} foreground masks from {mask_dir}")
+
+    pcd = scene.info.point_cloud
+    if len(pcd.points) > args.capacity:
+        # Keep room for densification: subsample the seed cloud to half cap.
+        sel = np.random.default_rng(args.seed).choice(len(pcd.points), args.capacity // 2, replace=False)
+        pcd = pcd._replace(points=pcd.points[sel], colors=pcd.colors[sel])
+    start_env = (None, None)
+    if args.start_ply:
+        model, *start_env = gaussian_io.load_ply(
+            os.path.join(args.start_ply, "point_cloud.ply"), capacity=args.capacity,
+            max_sh_degree=model_params.sh_degree, device=device,
+        )
+        print(f"Warm-started {int(model.n_alive)} gaussians from {args.start_ply}")
+    else:
+        model = gm.create_from_points(
+            pcd.points, pcd.colors, capacity=args.capacity, max_sh_degree=model_params.sh_degree,
+            rng=np.random.default_rng(args.seed), init_refl=opt.init_refl_value,
+            init_roughness=opt.init_roughness_value, device=device,
+        )
+        print(f"Initialized {len(pcd.points)} gaussians (capacity {args.capacity})")
+
+    bg = (1.0, 1.0, 1.0) if model_params.white_background else (0.0, 0.0, 0.0)
+    trainer = Trainer(
+        model, scene.train_cameras, images, opt, pipe,
+        cameras_extent=scene.cameras_extent, bg_color=bg,
+        raster_cfg=RasterizeConfig(pair_capacity=args.pair_capacity),
+        seed=args.seed, envmap_res=model_params.envmap_max_res, masks=masks,
+        envmap_min_roughness=model_params.envmap_min_roughness,
+        envmap_max_roughness=model_params.envmap_max_roughness,
+    )
+
+    save_iters = set(args.save_iterations or [opt.iterations])
+    ckpt_iters = set(args.checkpoint_iterations or [])
+    if args.checkpoint_every:
+        ckpt_iters |= set(range(args.checkpoint_every, opt.iterations + 1, args.checkpoint_every))
+    test_marks = set(args.test_iterations or [])
+    if args.test_every:
+        test_marks |= set(range(args.test_every, opt.iterations + 1, args.test_every))
+    marks = {m for m in save_iters | ckpt_iters | test_marks | {opt.iterations} if m <= opt.iterations}
+    done = 0
+    if args.start_checkpoint:
+        trainer.state, done = load_checkpoint(args.start_checkpoint, device=device)
+        print(f"Resumed from {args.start_checkpoint} at iteration {done}")
+    elif args.start_ply:
+        e1, e2 = start_env
+        if e1 is not None:
+            trainer.state.env1.base.data.copy_(e1.base)
+        if e2 is not None:
+            trainer.state.env2.base.data.copy_(e2.base)
+        trainer.state.step = args.start_iter
+        done = args.start_iter
+    marks = {m for m in marks if m > done}
+
+    results = {"trainer": trainer, "test": {}, "ply": None}
+    t0 = time.time()
+    for target in sorted(marks):
+        trainer.train(target - done, start_iter=done + 1, log_every=args.log_every)
+        done = target
+        with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
+            json.dump(trainer.metrics_log, f)
+        if target in test_marks and scene.test_cameras:
+            st = trainer.state
+            with torch.no_grad():
+                mips = EnvLightMips.build(st.env1, min_roughness=model_params.envmap_min_roughness,
+                                          max_roughness=model_params.envmap_max_roughness)
+            stage = select_stage(target, opt)
+            m = render_set(
+                os.path.join(args.model_path, f"test_{target}"), "test", scene.test_cameras,
+                [scene.test_image(i) for i in range(len(scene.test_cameras))], st.model, mips,
+                opts=RenderOptions(unbiased_depth=pipe.unbiased_depth, srgb=opt.srgb,
+                                   depth_ratio=pipe.depth_ratio,
+                                   raster=RasterizeConfig(pair_capacity=trainer.raster_cfg.pair_capacity)),
+                dump_maps=False, bg_color=bg, stage="initial" if stage == "initial" else "surfel",
+            )
+            results["test"][target] = m
+            print(f"[{target}] test psnr {m['psnr']:.2f}")
+        if target in ckpt_iters:
+            save_checkpoint(trainer.state, target, args.model_path)
+        if target in save_iters or target == opt.iterations:
+            # Record the escalated pair capacity, so eval renders the model
+            # without dropping pairs.
+            cfg.dump_config(args.model_path, model_params, pipe, opt,
+                            extra={"preset": args.preset, "capacity": args.capacity,
+                                   "pair_capacity": trainer.raster_cfg.pair_capacity,
+                                   "seed": args.seed})
+            out = os.path.join(args.model_path, f"point_cloud/iteration_{target}/point_cloud.ply")
+            gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
+            results["ply"] = out
+            last = trainer.metrics_log[-1] if trainer.metrics_log else {}
+            print(f"[{target}] saved; psnr={last.get('psnr', float('nan')):.2f} "
+                  f"n_alive={last.get('n_alive', 0)} wall={time.time() - t0:.0f}s")
+    return results
+
+
+if __name__ == "__main__":
+    main()

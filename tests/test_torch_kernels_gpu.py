@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain torch versions,
-on the card. Marked `gpu`; each test skips where no CUDA card is present.
+"""The port's hand-written CUDA kernels (tile rasterizer forward and
+backward) against their plain torch versions, on the card. Marked `gpu`; each test skips where no CUDA card is present.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from materialrefgs_torch.cameras import look_at_camera  # noqa: E402
 from materialrefgs_torch.ops.rasterize import api  # noqa: E402
-from materialrefgs_torch.ops.rasterize import tiles_fwd  # noqa: E402
+from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd  # noqa: E402
 from materialrefgs_torch.ops.rasterize.layout import out_layout  # noqa: E402
 
 # Per output group (tests/test_rasterize_pallas.py); contributor indices exact.
@@ -72,3 +72,59 @@ def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
         lo, hi = lay[name]
         assert np.array_equal(out[..., lo:hi], ref[..., lo:hi]), name
     assert np.all(out[..., lay["_channels"]:] == 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 9])
+@pytest.mark.parametrize("size", [(256, 192), (201, 133)])
+def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
+    """Per-pair gradients for a random cotangent, every gradient value within
+    1e-4 x its group's largest magnitude + 1e-7 (the sum over a tile's pixels
+    is taken in another order than torch.sum's)."""
+    W, H = size
+    cam = look_at_camera(
+        np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
+        0.9, 0.7, W, H, device=cuda_device,
+    )
+    ti = api.tile_inputs(
+        *_scene(6, 6000, S, cuda_device), cam, config=api.RasterizeConfig(pair_capacity=1 << 19)
+    )
+    kw = dict(S=S, grid_x=ti.grid_x, grid_y=ti.grid_y, W=W, H=H)
+    fwd = tiles_fwd.rasterize_tiles_fwd(ti.payload, ti.bins.tile_start, ti.bins.tile_count, **kw)
+    lay = out_layout(S)
+    active = torch.amax(fwd[..., lay["n_contrib"][0]], dim=1).to(torch.int32)
+    assert int(active.max()) > 32  # more than one shared-memory batch
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    cot = torch.randn(fwd.shape, device=cuda_device, generator=gen)
+    cot[..., lay["_channels"]:] = 0.0
+    args = (ti.payload, ti.bins.tile_start, ti.bins.tile_count, active, fwd, cot)
+    before = tiles_bwd.rasterize_tiles_bwd.launches
+    out = tiles_bwd.rasterize_tiles_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tiles_bwd.rasterize_tiles_bwd.launches == before + 1
+    ref = tiles_bwd.rasterize_tiles_bwd_plain(*args, **kw)
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert np.all(np.isfinite(out))
+    for lo, hi in ((0, 9), (9, 11), (11, 12), (12, out.shape[1])):
+        scale = float(np.abs(ref[:, lo:hi]).max())
+        np.testing.assert_allclose(out[:, lo:hi], ref[:, lo:hi], atol=1e-4 * scale + 1e-7, rtol=0)
+
+
+@pytest.mark.gpu
+def test_rasterize_autograd_launches_both_kernels(cuda_device):
+    """One forward and one backward launch per differentiated render."""
+    cam = look_at_camera(
+        np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
+        0.9, 0.7, 128, 96, device=cuda_device,
+    )
+    arrays = _scene(7, 2000, 4, cuda_device)
+    for a in arrays:
+        a.requires_grad_(True)
+    f0, b0 = tiles_fwd.rasterize_tiles_fwd.launches, tiles_bwd.rasterize_tiles_bwd.launches
+    out = api.rasterize(*arrays, cam, torch.zeros(3, device=cuda_device))
+    grads = torch.autograd.grad(out["render"].sum() + out["depth"].sum(), arrays)
+    torch.cuda.synchronize()
+    assert tiles_fwd.rasterize_tiles_fwd.launches == f0 + 1
+    assert tiles_bwd.rasterize_tiles_bwd.launches == b0 + 1
+    for g in grads:
+        assert torch.isfinite(g).all()
