@@ -33,13 +33,16 @@
 // contiguous rows) with plain stores. Every pair belongs to one tile, so no
 // atomics are needed and the result is deterministic.
 //
-// What bounds it on the H100: per (pixel, pair) walked the kernel repeats the
-// forward hit test (~42 FP32 operations, one expf), adds log1pf + expf and a
-// chain rule of ~120 more operations plus (12+S+6) warp sums; it reads the
-// pair's (12+S+6) payload rows once per tile and writes the same number of
-// gradient rows, plus 2 x C_OUT floats per pixel of saved output and
-// cotangent. That is far below the card's bytes-per-operation balance, so the
-// kernel is bound by FP32/SFU work and shuffles: the design keeps payload and
+// What bounds it on the H100: per (pixel, pair) inside the pixel's
+// contributor range the function needs the forward hit test again (~42 FP32
+// operations, one expf); only the pairs that pass it (a fraction that depends
+// on the scene) need log1pf + expf and the chain rule, ~180 operations at S=9
+// on the 3D branch and ~125 on the 2D one, counted with their gradient
+// rows' sums. It reads the pair's (12+S+6) payload rows once per tile and
+// writes the same number of gradient rows, plus 2 x C_OUT floats per pixel of
+// saved output and cotangent. That is below the card's bytes-per-operation
+// balance, so the kernel is bound by FP32/SFU work and shuffles (chip_smoke.py
+// prints the bound for its data): the design keeps payload and
 // warp partials in shared memory, the per-pixel saved state and carries in
 // registers, skips the reduction for pairs no pixel of a warp counts, and
 // touches device memory only to stage a batch and to store its gradients.
@@ -64,7 +67,6 @@ constexpr int ROW_LIN = 12;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float NEAR_N = 0.2f;
-constexpr float FAR_N = 100.0f;
 constexpr float NDC_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
 constexpr float DMD_NUM = (float)(100.0 * 0.2);              // FAR*NEAR
 constexpr float DMD_DEN = (float)(100.0 - 0.2);              // FAR-NEAR

@@ -150,12 +150,18 @@ def rasterize_tiles_bwd_plain(
     grid_y: int,
     W: int,
     H: int,
+    work: dict | None = None,
 ) -> torch.Tensor:
     """The kernel's computation in plain torch on any device: vectorized over
     tiles and pixels, one step per pair position walking back to front, with
     the JAX kernel's (and the CUDA kernel's) per-(pixel, pair) arithmetic.
     The gradient is derived by hand, not by autograd of the forward: the
-    alpha clamp passes its gradient through, as the kernels' does."""
+    alpha clamp passes its gradient through, as the kernels' does.
+
+    `work`, when given, receives how many (pixel, pair) passed the hit test
+    inside the pixel's contributor range, by branch: "pass3d" (ray-splat
+    intersection) and "pass2d" (low-pass filter). Only these carry the chain
+    rule; the rest need the hit test alone."""
     dev = payload.device
     num_tiles = grid_x * grid_y
     _check_bwd_inputs(payload, tile_start, tile_count, tile_active, fwd_out, cotangent, S, num_tiles)
@@ -200,6 +206,8 @@ def rasterize_tiles_bwd_plain(
     ndc_scale = FAR_N / (FAR_N - NEAR_N)
     carry_gw = torch.zeros((num_tiles, PIX), **f32)
     carry_lg = torch.zeros((num_tiles, PIX), **f32)
+    n3 = torch.zeros((), dtype=torch.int64, device=dev)
+    n2 = torch.zeros((), dtype=torch.int64, device=dev)
 
     for j in range(int(active.max()) - 1, -1, -1):
         live = j < active  # (T,)
@@ -265,6 +273,9 @@ def rasterize_tiles_bwd_plain(
         dG_g = opa * dalpha  # pass-through min clamp, as the kernels
         on3 = ok & use3d
         on2 = ok & ~use3d
+        if work is not None:
+            n3 += on3.sum()
+            n2 += on2.sum()
         ds1 = torch.where(on3, dG_g * (-Gg) * s1 + dz * twx, zero)
         ds2 = torch.where(on3, dG_g * (-Gg) * s2 + dz * twy, zero)
         dp1 = ds1 / pz_safe
@@ -293,4 +304,6 @@ def rasterize_tiles_bwd_plain(
 
         carry_gw = carry_gw + gw
         carry_lg = carry_lg + lg
+    if work is not None:
+        work["pass3d"], work["pass2d"] = int(n3), int(n2)
     return dpair

@@ -1,7 +1,8 @@
 """Training loop for the refnerf curriculum's `initial` and `surfel` stages
 (the JAX package's train/trainer.py, reference train_refnerf.py:1012-1533).
 
-`make_train_step(stage, ...)` returns one optimization step of that stage:
+`make_train_step(stage, ...)` returns one optimization step of that stage
+(a `TrainStep`, whose render and update halves can be called apart):
 render through the rasterizer (both tile kernels), the loss terms that are
 live before `surfel2` (calculate_loss with the image-gradient weight, the
 normal-consistency ladder, mask entropy when masks exist, the env-scope
@@ -39,15 +40,6 @@ from materialrefgs_torch.train.stages import select_stage
 from materialrefgs_torch.utils.transforms import expon_lr
 
 STAGES = ("initial", "surfel")
-
-
-class BinningOverflow(RuntimeError):
-    """A step's render dropped pairs for capacity (raised before any update
-    when the step was asked to refuse truncated renders)."""
-
-    def __init__(self, overflow: int):
-        super().__init__(f"binning overflow: {overflow} pairs dropped")
-        self.overflow = overflow
 
 
 def _later_slice(what: str) -> NotImplementedError:
@@ -130,61 +122,77 @@ def normal_loss_weight_schedule(iteration: int, opt: OptimizationParams) -> floa
     return v
 
 
-def make_train_step(
-    stage: str,
-    opt: OptimizationParams,
-    pipe: PipelineParams,
-    spatial_lr_scale: float,
-    raster_cfg: RasterizeConfig,
-    envmap_n_samples: int = 32,
-    env_min_roughness: float = 0.08,
-    env_max_roughness: float = 0.5,
-    refuse_overflow: bool = False,
-):
-    """Returns step(state, camera, gt, extra) -> metrics for `initial` or
-    `surfel`; the step updates `state` in place.
+class TrainStep:
+    """One optimization step of `initial` or `surfel`, in two halves so that
+    the caller can look at the render before anything is updated:
+    `render(state, camera, extra)` draws the view (with the screen-offset
+    leaf of the densification statistics) and `update(state, camera, gt,
+    extra, rendered)` takes the loss, its backward and the Adam update and
+    returns the metrics. Calling the step does both. The step updates
+    `state` in place.
 
     extra: {"iteration", "lambda_normal_render_depth", "bg"} and, when the
-    scene has foreground masks, "image_mask" (H, W). With refuse_overflow,
-    a render that dropped pairs raises BinningOverflow before the backward
-    and the update, so the state is untouched."""
-    if stage not in STAGES:
-        raise _later_slice("surfel2" if stage == "surfel2" else "volume")
-    if pipe.use_asg:
-        raise NotImplementedError(
-            "ASG indirect light (use_asg) is not ported yet; it comes with the "
-            "surfel2 slice of the port"
-        )
-    ropts = RenderOptions(
-        depth_ratio=pipe.depth_ratio,
-        use_asg=pipe.use_asg,
-        unbiased_depth=pipe.unbiased_depth,
-        srgb=opt.srgb,
-        raster=raster_cfg,
-    )
-    lopt = dataclasses.replace(opt, lambda_normal_render_depth=0.0)  # applied below
+    scene has foreground masks, "image_mask" (H, W)."""
 
-    def step(state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict) -> dict:
-        model = state.model
-        it = float(extra["iteration"])
-        offset = torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
-        if stage == "initial":
-            pkg = render_initial(model, camera, extra["bg"], ropts, offset)
-        else:
-            # The mips are rebuilt from env1 every step, differentiably
-            # (trainer.py:210-213).
-            mips = EnvLightMips.build(
-                state.env1, n_samples=envmap_n_samples,
-                min_roughness=env_min_roughness, max_roughness=env_max_roughness,
+    def __init__(
+        self,
+        stage: str,
+        opt: OptimizationParams,
+        pipe: PipelineParams,
+        spatial_lr_scale: float,
+        raster_cfg: RasterizeConfig,
+        envmap_n_samples: int = 32,
+        env_min_roughness: float = 0.08,
+        env_max_roughness: float = 0.5,
+    ):
+        if stage not in STAGES:
+            raise _later_slice("surfel2" if stage == "surfel2" else "volume")
+        if pipe.use_asg:
+            raise NotImplementedError(
+                "ASG indirect light (use_asg) is not ported yet; it comes with the "
+                "surfel2 slice of the port"
             )
-            pkg = render_surfel(model, camera, extra["bg"], mips, ropts, offset)
-        if refuse_overflow and int(pkg["overflow"]) > 0:
-            raise BinningOverflow(int(pkg["overflow"]))
+        self.stage = stage
+        self.opt = opt
+        self.spatial_lr_scale = spatial_lr_scale
+        self.envmap_n_samples = envmap_n_samples
+        self.env_min_roughness = env_min_roughness
+        self.env_max_roughness = env_max_roughness
+        self.ropts = RenderOptions(
+            depth_ratio=pipe.depth_ratio,
+            use_asg=pipe.use_asg,
+            unbiased_depth=pipe.unbiased_depth,
+            srgb=opt.srgb,
+            raster=raster_cfg,
+        )
+        self.lopt = dataclasses.replace(opt, lambda_normal_render_depth=0.0)  # applied in update
 
+    def __call__(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict) -> dict:
+        return self.update(state, camera, gt, extra, self.render(state, camera, extra))
+
+    def render(self, state: TrainState, camera: Camera, extra: dict) -> tuple[dict, torch.Tensor]:
+        """(the render package, the screen-offset leaf it was drawn with)."""
+        model = state.model
+        offset = torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
+        if self.stage == "initial":
+            return render_initial(model, camera, extra["bg"], self.ropts, offset), offset
+        # The mips are rebuilt from env1 every step, differentiably
+        # (trainer.py:210-213).
+        mips = EnvLightMips.build(
+            state.env1, n_samples=self.envmap_n_samples,
+            min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
+        )
+        return render_surfel(model, camera, extra["bg"], mips, self.ropts, offset), offset
+
+    def update(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict,
+               rendered: tuple[dict, torch.Tensor]) -> dict:
+        pkg, offset = rendered
+        opt, model = self.opt, state.model
+        it = float(extra["iteration"])
         image_weight = None
         if not opt.wo_image_weight:
             image_weight = torch.clamp(1.0 - losses.get_img_grad_weight(gt), 0, 1) ** 2
-        loss, tb = losses.calculate_loss(gt, pkg, lopt, it, image_weight)
+        loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight)
 
         # Iteration-dependent normal-consistency weight (ladder).
         gate = float(it > opt.normal_loss_start)
@@ -196,7 +204,7 @@ def make_train_step(
         loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
         tb["loss_normal_render_depth"] = ln
 
-        if opt.use_env_scope and stage == "surfel":
+        if opt.use_env_scope and self.stage == "surfel":
             # Penalize refl_strength outside the scene sphere
             # (train_refnerf.py:1022-1027, 1335-1338; weight 0.4).
             center = torch.tensor(opt.env_scope_center, dtype=torch.float32, device=model.device)
@@ -206,7 +214,7 @@ def make_train_step(
             loss = loss + 0.4 * refl_msk_loss
             tb["loss_refl_msk"] = refl_msk_loss
 
-        if stage == "surfel" and "image_mask" in extra:
+        if self.stage == "surfel" and "image_mask" in extra:
             # Mask entropy after the volume stage (train_refnerf.py:1211-1220).
             o = torch.clamp(pkg["rend_alpha"][..., 0], 1e-6, 1 - 1e-6)
             msk = extra["image_mask"]
@@ -218,7 +226,7 @@ def make_train_step(
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names] + [offset], allow_unused=True)
         goff = grads[-1] if grads[-1] is not None else torch.zeros_like(offset)
-        lrs = param_lrs(opt, spatial_lr_scale, state.step, state.opacity_lr_scale)
+        lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
         state.adam.step(params, dict(zip(names, grads[:-1])), lrs)
         gm.add_densification_stats(
             model, goff, pkg["radii"].detach(),
@@ -231,7 +239,21 @@ def make_train_step(
         metrics["overflow"] = pkg["overflow"]
         return metrics
 
-    return step
+
+def make_train_step(
+    stage: str,
+    opt: OptimizationParams,
+    pipe: PipelineParams,
+    spatial_lr_scale: float,
+    raster_cfg: RasterizeConfig,
+    envmap_n_samples: int = 32,
+    env_min_roughness: float = 0.08,
+    env_max_roughness: float = 0.5,
+) -> TrainStep:
+    """The step of `initial` or `surfel`: step(state, camera, gt, extra) ->
+    metrics (see TrainStep)."""
+    return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
+                     env_min_roughness, env_max_roughness)
 
 
 class Trainer:
@@ -241,9 +263,9 @@ class Trainer:
     Binning overflow: the JAX Trainer polls the overflow every 10 iterations
     (reading it syncs its asynchronous dispatch) and escalates the pair
     capacity, so up to 10 truncated steps are applied. The port's eager step
-    synchronizes with the host anyway, so it checks every step, and a render
-    that dropped pairs is redone at the escalated capacity before any
-    update: no truncated step is applied unless the capacity is at its
+    synchronizes with the host anyway, so the Trainer reads every render's
+    overflow between the step's render and update halves, and a render that
+    dropped pairs is redone at the escalated capacity: no truncated step is applied unless the capacity is at its
     ceiling, where the step is applied truncated with a warning, as in the
     JAX package. The ceiling is 4x the JAX package's 1<<23 pair slots: a
     compressed curriculum's opacity and scale resets can ask for over 10M
@@ -300,16 +322,14 @@ class Trainer:
         self.metrics_log: list[dict] = []
         self._order: list[int] = []
 
-    def _step_fn(self, stage: str, refuse_overflow: bool = True):
-        key = (stage, refuse_overflow)
-        if key not in self._steps:
-            self._steps[key] = make_train_step(
+    def _step_fn(self, stage: str) -> TrainStep:
+        if stage not in self._steps:
+            self._steps[stage] = make_train_step(
                 stage, self.opt, self.pipe, self.spatial_lr_scale, self.raster_cfg,
                 env_min_roughness=self.envmap_min_roughness,
                 env_max_roughness=self.envmap_max_roughness,
-                refuse_overflow=refuse_overflow,
             )
-        return self._steps[key]
+        return self._steps[stage]
 
     def _pick_view(self) -> int:
         """Next camera id from the epoch permutation (viewpoint_stack pop)."""
@@ -334,17 +354,17 @@ class Trainer:
     def _run_step(self, iteration: int, stage: str) -> dict:
         cam_id = self._pick_view()
         extra = self._build_extra(iteration, cam_id)
-        args = (self.state, self.cameras[cam_id], self.images[cam_id], extra)
+        cam = self.cameras[cam_id]
+        rendered = self._step_fn(stage).render(self.state, cam, extra)
         dropped, renders = 0, 0
         while True:
-            try:
-                metrics = self._step_fn(stage)(*args)
+            overflow = int(rendered[0]["overflow"])
+            if overflow == 0 or not self._escalate_pair_capacity(overflow, iteration):
                 break
-            except BinningOverflow as e:
-                dropped, renders = dropped + e.overflow, renders + 1
-                if not self._escalate_pair_capacity(e.overflow, iteration):
-                    metrics = self._step_fn(stage, refuse_overflow=False)(*args)
-                    break
+            dropped, renders = dropped + overflow, renders + 1
+            del rendered  # free the truncated render's graph before redoing it
+            rendered =self._step_fn(stage).render(self.state, cam, extra)
+        metrics = self._step_fn(stage).update(self.state, cam, self.images[cam_id], extra, rendered)
         # Renders that dropped pairs and were redone, and the pairs they dropped.
         metrics["renders_redone"] = renders
         metrics["overflow_redone"] = dropped

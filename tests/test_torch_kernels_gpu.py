@@ -79,8 +79,10 @@ def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
 @pytest.mark.parametrize("size", [(256, 192), (201, 133)])
 def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
     """Per-pair gradients for a random cotangent, every gradient value within
-    1e-4 x its group's largest magnitude + 1e-7 (the sum over a tile's pixels
-    is taken in another order than torch.sum's)."""
+    1e-4 x (its own magnitude + the 99th percentile of its group's nonzero
+    magnitudes, at most the group's largest magnitude) + 1e-7 (the sum over a tile's pixels is taken in another order
+    than torch.sum's, so a sum that cancels may differ by more than 1e-4 of
+    itself; an error at the group's typical magnitude fails)."""
     W, H = size
     cam = look_at_camera(
         np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
@@ -106,8 +108,11 @@ def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
     assert np.all(np.isfinite(out))
     for lo, hi in ((0, 9), (9, 11), (11, 12), (12, out.shape[1])):
-        scale = float(np.abs(ref[:, lo:hi]).max())
-        np.testing.assert_allclose(out[:, lo:hi], ref[:, lo:hi], atol=1e-4 * scale + 1e-7, rtol=0)
+        mag = np.abs(ref[:, lo:hi])
+        p99 = float(np.quantile(mag[mag > 0], 0.99))
+        tol = 1e-4 * np.minimum(mag + p99, mag.max()) + 1e-7
+        err = np.abs(out[:, lo:hi] - ref[:, lo:hi])
+        assert np.all(err <= tol), (lo, hi, float((err / tol).max()))
 
 
 @pytest.mark.gpu
