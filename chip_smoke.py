@@ -9,10 +9,13 @@ Phases (any failure exits non-zero before the result lines are printed):
   1. the card's name and power limit;
   2. build every kernel of the serving and training paths from csrc/ with
      nvcc (ptxas -v), one nvcc per source, all started together;
-  3. hold each kernel against its plain torch version on the card: a
-     mid-size random scene at S=1 and S=9, the 64 densest tiles of the
-     full-width view, and the full-width view itself (the backward kernel
-     with a random cotangent);
+  3. hold each kernel against its plain torch version on the card: the
+     rasterizer on a mid-size random scene at S=1, 9 and 10 (render_surfel2's
+     width), the 64 densest tiles of the full-width view and the full-width
+     view itself (the backward kernel with a random cotangent); the bundle
+     tracer on a mid-size random scene (multi-chunk segments, an empty
+     segment, bundles that exit early) for n_sh 1 and 16 in list and exact
+     order, all 16 output channels;
   4. serve a full-width refnerf model (150k splats, SH degree 3, all
      materials, 128^2 env, 800x800, S=9) through scripts/eval_torch.py's path:
      the model is written with the port's save_ply, 8 ground-truth views are
@@ -36,7 +39,26 @@ Phases (any failure exits non-zero before the result lines are printed):
      outcomes on the same inputs), and the Trainer's step (host clock,
      torch.profiler device-busy share and top kernels): `initial` on the
      learning check's state, `surfel` on the run's checkpoint at 30 and on
-     its state after 60.
+     its state after 60;
+ 10. serve a full-width env-GS (`surfel2`) refnerf checkpoint through
+     scripts/eval_torch.py's path: phase 4's model with its splats turned to
+     lie in the shell (normals radial), saved under iteration_30000, plus a
+     150k-splat env cloud (SH degree 3) on a shell of radius 2.2 +- 0.2, and
+     phase 4's pair capacity in cfg_args.json. Two sets of 8 views, each
+     with ground truth rendered from the checkpoint: phase 4's ring of
+     radius 3.2 (the whole object in view) and close-ups on a ring of radius
+     1.65 (the object fills the frame); each set's demand is probed and
+     printed. For each set, run (a) without a mesh (splat visibility, two
+     trace launches per render) and (b) with meshes/test_030000.ply, a bumpy
+     icosphere of 81,920 triangles (one launch per render, over occluded
+     bundles only); the eval starts from the JAX eval's tracer budgets and
+     redoes a view that overflows them at budgets that fit; counts zeroed
+     just before each run, read right after;
+ 11. for view 0 of each set, the tracer kernel against its plain version at
+     the inputs the eval's path gives it (each launch kind), its time (CUDA
+     events), its plain version's and its bound; one render_surfel2 view per
+     visibility mode under torch.profiler with its peak device memory, and
+     the mesh tracer's device time.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -220,6 +242,148 @@ def ring_views(np, n, radius=3.2):
     return mats
 
 
+# Trace kernel vs plain: per value |err| <= TRACE_RTOL |ref| + TRACE_ATOL on
+# the float channels; n_contrib and NPROC identical. The kernel repeats the
+# plain version's operations in its order, built without FMA contraction.
+TRACE_RTOL, TRACE_ATOL = 1e-5, 1e-6
+# FP32 operations the tracer needs (csrc/trace_fwd.cu): the hit test per
+# (ray, pair) of a processed chunk: denominator 5, |.| and select 2, t 9,
+# the hit point 9, u and v 10, rho 3, exp and alpha 4, the four tests 3;
+# per hit, log1p, the prefix add and the T-stop test (3); per composited hit,
+# exp and w (2), SH color 3 x (2 n_sh + 1), rgb 6, depth 2, flipped normal 8,
+# final_T and n_contrib 4. Exact order adds its sort: k log2 k comparisons
+# for the k hits of a ray in a chunk.
+TRACE_HIT_FLOPS = 45
+# The tracer launch the kernels' record reports: the env trace of a view that
+# sees the whole object.
+TRACE_ROW = "ring view 0, env, no mesh (n_sh=16)"
+
+
+def trace_flops(work, n_sh, exact):
+    composite = 2 + 3 * (2 * n_sh + 1) + 6 + 2 + 8 + 4
+    flops = TRACE_HIT_FLOPS * work["hit_tests"] + 3 * work["hits"] + composite * work["contribs"]
+    return flops + (work["sort_compares"] if exact else 0.0)
+
+
+def compare_trace(np, out, ref, what):
+    """All 16 output channels of the tracer kernel against its plain
+    version: max and 99th-percentile |err| per channel; raises past the
+    tolerance or on any integer-channel mismatch. Returns the largest error."""
+    from materialrefgs_torch.ops.tracer import layout as tl
+
+    names = ["r", "g", "b", "depth", "nx", "ny", "nz", "final_T", "n_contrib", "SUMLG", "NPROC"]
+    names += [f"pad{c}" for c in range(len(names), tl.C_OUT)]
+    check(np.isfinite(out).all() and np.isfinite(ref).all(), f"{what}: non-finite tracer output")
+    worst = 0.0
+    cells = []
+    for c, name in enumerate(names):
+        err = np.abs(out[..., c] - ref[..., c])
+        if c in (tl.OUT_NCONTRIB, tl.OUT_NPROC):
+            n_bad = int((err != 0).sum())
+            cells.append(f"{name} mismatches {n_bad}")
+            check(n_bad == 0, f"{what}: {name} differs on {n_bad} rays")
+            continue
+        ok = bool(np.all(err <= TRACE_RTOL * np.abs(ref[..., c]) + TRACE_ATOL))
+        cells.append(f"{name} {float(err.max()):.2e}/{float(np.quantile(err, 0.99)):.2e}{'' if ok else ' FAIL'}")
+        check(ok, f"{what}: channel {name} outside tolerance")
+        worst = max(worst, float(err.max()))
+    print(f"    {what}: max/p99 |err| per channel: " + ", ".join(cells))
+    return worst
+
+
+def icosphere(np, sub):
+    """Unit icosphere (vertices, triangles) with 20 * 4^sub faces."""
+    t = (1.0 + math.sqrt(5.0)) / 2.0
+    verts = [np.array(v, np.float64) for v in (
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+        [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1])]
+    faces = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+             [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+             [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(sub):
+        mid, new = {}, []
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                verts.append((verts[a] + verts[b]) / 2.0)
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        faces = new
+    v = np.array(verts)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True), np.array(faces, np.int32)
+
+
+def bumpy_mesh(np):
+    """The served checkpoint's mesh: an icosphere of 81,920 triangles
+    displaced to r = 1.05 + 0.3 sin(8x) sin(8y + 1) sin(8z + 2). Its bumps
+    reach past the splats' surface, so reflected rays leaving a valley hit the
+    neighbouring bumps (a convex mesh would occlude nothing)."""
+    v, f = icosphere(np, 6)
+    b = np.sin(8.0 * v[:, 0]) * np.sin(8.0 * v[:, 1] + 1.0) * np.sin(8.0 * v[:, 2] + 2.0)
+    return (v * (1.05 + 0.3 * b)[:, None]).astype(np.float32), f
+
+
+def radial_rotations(np, xyz, rng):
+    """Quaternions (w, x, y, z) whose surfel normal (the rotation's z axis)
+    is the splat's radial direction, with a random spin about it: the shell's
+    splats lie in the surface, as a converged model's do."""
+    n = xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+    q = np.stack([1.0 + n[:, 2], -n[:, 1], n[:, 0], np.zeros(len(n))], -1)  # +z -> n
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    half = rng.uniform(0.0, math.pi, len(n))
+    cw, sz = np.cos(half), np.sin(half)  # spin (cos, 0, 0, sin) about the local z
+    return np.stack([q[:, 0] * cw, q[:, 1] * cw + q[:, 2] * sz, q[:, 2] * cw - q[:, 1] * sz,
+                     q[:, 0] * sz], -1).astype(np.float32)
+
+
+def env_cloud_arrays(np, PARAM_SHAPES, rgb_to_sh, torch, P=P_SPLATS, seed=1):
+    """150k environment splats, SH degree 3 with nonzero higher bands, on a
+    shell of radius 2.2 +- 0.2 around the object."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(P, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    opac = rng.uniform(0.3, 0.9, size=(P, 1))
+    arrays = {name: np.zeros((P,) + shape(16), np.float32) for name, shape in PARAM_SHAPES.items()}
+    arrays.update(
+        xyz=(u * rng.uniform(2.0, 2.4, size=(P, 1))).astype(np.float32),
+        scaling=(rng.normal(size=(P, 2)) * 0.2 - 3.9).astype(np.float32),
+        rotation=rng.normal(size=(P, 4)).astype(np.float32),
+        opacity=np.log(opac / (1 - opac)).astype(np.float32),
+        features_dc=rgb_to_sh(torch.tensor(rng.uniform(0.05, 0.95, size=(P, 1, 3)))).numpy().astype(np.float32),
+        features_rest=(rng.normal(size=(P, 15, 3)) * 0.15).astype(np.float32),
+    )
+    return arrays
+
+
+def capture_trace(torch, tracer_api, fn):
+    """Run fn() under no_grad and return the (args, kwargs) of every tracer
+    kernel call it makes, the payload cut to the columns its segments use."""
+    captured = []
+    real = tracer_api.trace_bundles_fwd
+
+    def wrapper(payload, rays, seg_start, seg_count, **kw):
+        used = payload[:, : int(seg_start[-1]) + 128].clone()
+        captured.append(((used, rays.clone(), seg_start.clone(), seg_count.clone()), dict(kw)))
+        return real(payload, rays, seg_start, seg_count, **kw)
+
+    tracer_api.trace_bundles_fwd = wrapper
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        tracer_api.trace_bundles_fwd = real
+    return captured
+
+
+def pow2_at_least(n):
+    return 1 << max(int(math.ceil(n)) - 1, 1).bit_length()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "materialrefgs_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -241,6 +405,8 @@ def main() -> int:
     from materialrefgs_torch.ops import nvcc
     from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, acc_channels, out_layout
+    from materialrefgs_torch.ops.tracer import api as tracer_api
+    from materialrefgs_torch.ops.tracer import trace_fwd
     from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
     from materialrefgs_torch.utils import png
     from materialrefgs_torch.utils.sh import rgb_to_sh
@@ -248,6 +414,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kernel_fn = tiles_fwd.rasterize_tiles_fwd
     bwd_fn = tiles_bwd.rasterize_tiles_bwd
+    trace_fn = trace_fwd.trace_bundles_fwd
 
     # ------------------------------------------------------------------ 1 --
     phase("1. card")
@@ -265,9 +432,9 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd)))
-    print(f"both kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd, trace_fwd)))
+    print(f"3 kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for lib_path, log in builds:
         print(f"{os.path.relpath(lib_path, REPO)}:")
         print(log.strip() or "(already built)")
@@ -320,7 +487,7 @@ def main() -> int:
 
     from materialrefgs_torch.cameras import look_at_camera
 
-    for S in (1, 9):
+    for S in (1, 9, 10):
         cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
                              0.9, 0.7, 384, 288, device=dev)
         ti = api.tile_inputs(*mid_scene(S), cam, config=api.RasterizeConfig(pair_capacity=1 << 20))
@@ -360,6 +527,46 @@ def main() -> int:
     bwd_err, bwd9 = run_bwd(full, seed=800)
     n_contrib_sum = float(out[..., lay9["n_contrib"][0]].sum())
     plain_ms = cuda_ms(torch, lambda: tiles_fwd.rasterize_tiles_fwd_plain(*full_args, **full_kw), 2)
+
+    # The bundle tracer on a mid-size random scene: 64 bundles of coherent
+    # rays looking into a slab of surfels; bundle 5 masked (an empty
+    # segment), bundles 48-63 aimed at an opaque core (they exit early).
+    trng = np.random.default_rng(4)
+    NBm, Pm = 64, 40_000
+    means = np.concatenate([trng.uniform(-2.0, 2.0, (Pm, 3)), trng.normal(size=(Pm // 8, 3)) * 0.2])
+    means[:, 2] = np.abs(means[:, 2])
+    nm = len(means)
+    opac_m = np.concatenate([trng.uniform(0.2, 0.9, Pm), np.full(Pm // 8, 0.98)])
+    ro = np.zeros((NBm, 256, 3))
+    ro[..., :2] = trng.uniform(-0.15, 0.15, (NBm, 256, 2)) + trng.uniform(-1.6, 1.6, (NBm, 1, 2))
+    ro[48:, :, :2] *= 0.05
+    ro[..., 2] = -3.0
+    rdir = np.zeros((NBm, 256, 3))
+    rdir[..., :2] = trng.uniform(-0.08, 0.08, (NBm, 256, 2))
+    rdir[..., 2] = 1.0
+    mid_inputs = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+        ro.reshape(-1, 3), rdir.reshape(-1, 3), means, np.exp(trng.normal(size=(nm, 2)) * 0.3 - 2.8),
+        trng.normal(size=(nm, 4)), opac_m, trng.normal(size=(nm, 16, 3)) * 0.3)]
+    bmask = torch.ones(NBm, dtype=torch.bool, device=dev)
+    bmask[5] = False
+    for n_sh in (1, 16):
+        for exact in (False, True):
+            captured = capture_trace(torch, tracer_api, lambda: tracer_api.trace(
+                *mid_inputs, tracer_api.TracerConfig(pair_capacity=1 << 20, exact_order=exact),
+                sh_degree=3 if n_sh == 16 else 0, bundle_mask=bmask))
+            (targs, tkw), = captured
+            out_t = trace_fn(*targs, **tkw)
+            torch.cuda.synchronize()
+            ref_t = trace_fwd.trace_bundles_fwd_plain(*targs, **tkw).cpu().numpy()
+            cnt = targs[3].cpu().numpy()
+            nproc = ref_t[:, 0, 10]
+            chunks = (cnt + 127) // 128
+            check(cnt[5] == 0 and cnt.max() > 3 * 128, "mid trace scene lacks an empty or a multi-chunk segment")
+            check(bool((nproc[48:] < chunks[48:]).any()), "no bundle of the mid trace scene exits early")
+            compare_trace(np, out_t.cpu().numpy(), ref_t,
+                          f"mid scene, n_sh={n_sh}, {'exact' if exact else 'list'} order, "
+                          f"{int(cnt.sum())} pairs, {int(chunks.max())} chunks in the longest segment, "
+                          f"{int((nproc < chunks).sum())} bundles exit early")
 
     # ------------------------------------------------------------------ 4 --
     phase("4. serve a full-width refnerf model through scripts/eval_torch.py")
@@ -685,6 +892,270 @@ def main() -> int:
         for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  {e.self_device_time_total / 1e3 / 3:9.3f}  {e.count // 3:5d}  {e.key[:90]}")
 
+    # ----------------------------------------------------------------- 10 --
+    phase("10. serve a full-width env-GS (surfel2) refnerf checkpoint through scripts/eval_torch.py")
+    from materialrefgs_torch.ops import mesh_tracer as mtr
+    from materialrefgs_torch.render import envgs
+    from materialrefgs_torch.render.renderers import mesh_visibility_map
+    from materialrefgs_torch.train.mesh_extract import write_mesh_ply
+    from materialrefgs_torch import evaluate as evaluate_mod
+
+    s2_arrays = dict(arrays)
+    s2_arrays["rotation"] = radial_rotations(np, arrays["xyz"], np.random.default_rng(5))
+    s2_model = GaussianModel.from_arrays(s2_arrays, np.ones(P_SPLATS, bool), 3, 3, dev)
+    env_arrays = env_cloud_arrays(np, PARAM_SHAPES, rgb_to_sh, torch)
+    env_model = GaussianModel.from_arrays(env_arrays, np.ones(P_SPLATS, bool), 3, 3, dev)
+    work_dir = os.path.dirname(model_path)  # phase 4's scratch directory
+    s2_path = os.path.join(work_dir, "envgs_model")
+    s2_dir = os.path.join(s2_path, "point_cloud", "iteration_30000")
+    gaussian_io.save_ply(s2_model, os.path.join(s2_dir, "point_cloud.ply"), env1=env)
+    gaussian_io.save_ply(env_model, os.path.join(s2_dir, "env_point_cloud.ply"))
+    check(cfg.preset_refnerf()[2].indirect_from_iter < 30000, "iteration 30000 is not a surfel2 checkpoint")
+    # The run's budgets as phase 4's: the tracer starts from them and the JAX
+    # eval's 16384 cluster pairs; render_set raises both where a view needs it.
+    cfg.dump_config(s2_path, mp, pipe, opt, extra={"pair_capacity": PAIR_CAPACITY})
+
+    def probe(cams):
+        """Worst view's demand: rasterizer pairs, and for each trace stage-1
+        cluster pairs and gaussian pairs (through the tracer's own cull, no
+        cluster budget), with the share of the pairs that falls on
+        silhouette bundles (a pixel with alpha <= 0.5)."""
+        big = tracer_api.TracerConfig(cluster_pair_capacity=1 << 40)
+        worst = {"raster": 0, "env": [0, 0, 0.0], "vis": [0, 0, 0.0]}
+        z = torch.zeros((P_SPLATS, 3), device=dev)
+        with torch.no_grad():
+            for cam in cams:
+                ti = api.tile_inputs(s2_model.xyz, s2_model.get_scaling, s2_model.get_rotation,
+                                     s2_model.get_opacity[:, 0], z, z[:, :1], cam,
+                                     config=api.RasterizeConfig(pair_capacity=1 << 25))
+                worst["raster"] = max(worst["raster"], int(ti.bins.num_pairs) + int(ti.bins.overflow))
+                pkg = render_surfel(s2_model, cam, white, mips, RenderOptions(raster=api.RasterizeConfig(
+                    pair_capacity=pow2_at_least(1.25 * worst["raster"]))))
+                alpha = pkg["rend_alpha"]
+                nmap = pkg["rend_normal"] / torch.clamp(alpha, min=1e-6)
+                active = envgs.bundle_alpha_mask(alpha, H, W)
+                sil = active & (torch.amin(envgs.rays_to_bundles(alpha, H, W).reshape(-1, 256), dim=1) <= 0.5)
+                for name, cloud, offset in (("env", env_model, 1e-3), ("vis", s2_model, 3e-2)):
+                    ro_, rd_ = envgs._reflected_rays(cam, nmap, pkg["surf_depth"], offset)
+                    nb = ro_.shape[0] // 256
+                    _, b_of, _, okg, _ = tracer_api._cull(
+                        ro_.reshape(nb, 256, 3), rd_.reshape(nb, 256, 3), cloud.xyz, cloud.get_scaling,
+                        cloud.get_opacity[:, 0], big, active)
+                    n_pairs = int(okg.sum())
+                    if n_pairs >= worst[name][1]:
+                        on_sil = int((okg & sil[b_of]).sum())
+                        worst[name] = [max(worst[name][0], okg.shape[0]), n_pairs, on_sil / max(n_pairs, 1)]
+                    worst[name][0] = max(worst[name][0], okg.shape[0])
+                    del okg, b_of
+        return worst
+
+    def envgs_scene(name, mats):
+        """A Blender-layout scene with these 8 test views; the ground truth
+        is rendered with render_surfel from the checkpoint's main cloud."""
+        root = os.path.join(work_dir, name)
+        os.makedirs(os.path.join(root, "test"))
+        frames = [{"file_path": f"./test/r_{i}", "transform_matrix": m_.tolist()} for i, m_ in enumerate(mats)]
+        for split, fr in (("train", frames[:1]), ("test", frames)):
+            with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+                json.dump({"camera_angle_x": 0.8, "frames": fr}, f)
+        for i in range(N_VIEWS):
+            png.write_png(os.path.join(root, "test", f"r_{i}.png"), np.zeros((H, W, 3), np.uint8))
+        cams = Scene.load(dataclasses.replace(mp, source_path=root), device=dev).test_cameras
+        with torch.no_grad():
+            for i, cam in enumerate(cams):
+                pkg = render_surfel(s2_model, cam, white, mips, opts)
+                check(int(pkg["overflow"]) == 0, f"{name}: GT view {i} overflows")
+                save_png(os.path.join(root, "test", f"r_{i}.png"), torch.clamp(pkg["render"], 0, 1))
+        return root, cams
+
+    # Two view sets. "ring": phase 4's 8 views (radius 3.2), which see the
+    # whole object as a refnerf test set does; their silhouette bundles mix
+    # rays from the camera centre with rays from the surface, and their
+    # cones take in most of both clouds. "close": 8 views on a ring of
+    # radius 1.65 that the object fills, with no silhouette.
+    t0 = time.perf_counter()
+    view_sets = {"ring": envgs_scene("envgs_ring", ring_views(np, N_VIEWS)),
+                 "close": envgs_scene("envgs_close", ring_views(np, N_VIEWS, radius=1.65))}
+    for vset, (_, cams) in view_sets.items():
+        worst = probe(cams)
+        print(f"  demand of the {vset} views (worst view): rasterizer {worst['raster']} pairs; env trace "
+              f"{worst['env'][0]} cluster pairs / {worst['env'][1]} pairs ({100 * worst['env'][2]:.1f} % on "
+              f"silhouette bundles); visibility trace {worst['vis'][0]} / {worst['vis'][1]} "
+              f"({100 * worst['vis'][2]:.1f} %); the JAX eval's 16384 cluster pairs would drop up to "
+              f"{256 * max(max(worst['env'][0], worst['vis'][0]) - (1 << 14), 0)} pairs at stage 1")
+    print(f"  ground truth and probes of both view sets in {time.perf_counter() - t0:.1f} s")
+
+    # Read what each render reports, during the eval itself (redone renders
+    # included: they are the ones whose traces overflowed).
+    seen = []
+    real_surfel2 = evaluate_mod.render_surfel2
+
+    def recording_surfel2(*a, **kw):
+        pkg = real_surfel2(*a, **kw)
+        seen.append({"tracer_overflow": int(pkg["tracer_overflow"]), "tracer_pairs": int(pkg["tracer_pairs"]),
+                     "mesh_cull_dropped": int(pkg["mesh_cull_dropped"]),
+                     "visibility": pkg["visibility"].detach(), "alpha": pkg["rend_alpha"].detach()})
+        return pkg
+
+    evaluate_mod.render_surfel2 = recording_surfel2
+    served = {}
+    verts, faces = bumpy_mesh(np)
+    mesh_file = os.path.join(s2_path, "meshes", "test_030000.ply")
+    try:
+        for vset, (root, _) in view_sets.items():
+            for run, with_mesh in (("a", False), ("b", True)):
+                if with_mesh:
+                    write_mesh_ply(mesh_file, verts, faces)
+                elif os.path.exists(mesh_file):
+                    os.remove(mesh_file)
+                what = f"{vset} views, run ({run})"
+                seen.clear()
+                kernel_fn.launches = 0  # counts of this run of the main path only
+                trace_fn.launches = 0
+                t0 = time.perf_counter()
+                m = eval_torch.main(["-m", s2_path, "-s", root, "--skip_train"])["test"]
+                wall = time.perf_counter() - t0
+                r_launch, t_launch = kernel_fn.launches, trace_fn.launches
+                final = [v for v in seen if v["tracer_overflow"] == 0]
+                occl = []
+                for v in final:
+                    act = envgs.bundle_alpha_mask(v["alpha"], H, W)
+                    vb = envgs.rays_to_bundles(v["visibility"], H, W).reshape(-1, 256)
+                    occ = act & (torch.amin(vb, dim=1) < 0.5)
+                    occl.append(float(occ.sum()) / max(float(act.sum()), 1.0))
+                served[vset, run] = dict(metrics=m, trace=t_launch, occluded=occl,
+                                         pairs=[v["tracer_pairs"] for v in final],
+                                         dropped=[v["mesh_cull_dropped"] for v in final])
+                kinds_per_render = 1 if with_mesh else 2
+                print(f"  {what}, {'with meshes/test_030000.ply (' + str(len(faces)) + ' triangles)' if with_mesh else 'without a mesh (splat visibility)'}: "
+                      f"{wall:.1f} s for the eval call")
+                print(f"    env-trace pairs per view: {served[vset, run]['pairs']}")
+                print(f"    tracer overflow, worst served view: {m['tracer_overflow']}; renders redone at raised "
+                      f"budgets: {m['tracer_redos']}; budgets at the end (cluster pairs, pairs): "
+                      f"{m['tracer_budgets']}; mesh_cull_dropped per view: {served[vset, run]['dropped']}")
+                print(f"    occluded share of the active bundles per view: {[round(x, 4) for x in occl]}")
+                print(f"    trace launches: {t_launch} for {len(seen)} renders ({kinds_per_render} per render); "
+                      f"rasterizer launches {r_launch}")
+                print(f"    eval: {m['fps']:.3f} views/s end to end, psnr {m['psnr']:.3f} dB, ssim {m['ssim']:.5f}, "
+                      f"rasterizer overflow {m['overflow']}")
+                check(len(final) == N_VIEWS and len(m["per_view_psnr"]) == N_VIEWS, f"{what}: skipped views")
+                check(len(seen) == N_VIEWS + m["tracer_redos"], f"{what}: renders and redos disagree")
+                check(m["tracer_overflow"] == 0, f"{what}: tracer overflow")
+                check(m["overflow"] == 0, f"{what}: rasterizer overflow")
+                check(all(v == 0 for v in served[vset, run]["dropped"]), f"{what}: mesh pre-cull dropped clusters")
+                check(all(v > 0 for v in served[vset, run]["pairs"]), f"{what}: a view traced no env pair")
+                check(r_launch == len(seen), f"{what}: rasterizer launched {r_launch} times for {len(seen)} renders")
+                check(t_launch == kinds_per_render * len(seen),
+                      f"{what}: tracer launched {t_launch} times for {len(seen)} renders")
+                check(math.isfinite(m["psnr"]) and math.isfinite(m["ssim"]), f"{what}: non-finite metrics")
+                check(os.path.exists(os.path.join(s2_path, "eval_30000", "test", "visibility", "00000.png")),
+                      f"{what}: visibility map not written")
+                if with_mesh:
+                    check(min(occl) > 0, f"{what}: no bundle is occluded by the mesh")
+    finally:
+        evaluate_mod.render_surfel2 = real_surfel2
+    trace_launches = sum(s["trace"] for s in served.values())
+
+    # ----------------------------------------------------------------- 11 --
+    phase("11. tracer kernel at the served shapes; where a served env-GS view's time goes")
+    mesh = mtr.build_mesh(verts, faces, device=dev)
+    s2_opts = RenderOptions(raster=api.RasterizeConfig(pair_capacity=PAIR_CAPACITY))
+    trace_times = {}
+
+    def time_trace(what, targs, tkw):
+        """The kernel against its plain version on one launch's inputs, both
+        times, and the bound counted from the plain version's outcomes."""
+        n_sh = tkw["n_sh"]
+        out_t = trace_fn(*targs, **tkw)
+        torch.cuda.synchronize()
+        work_t = {}
+        ref_t = trace_fwd.trace_bundles_fwd_plain(*targs, **tkw, work=work_t)
+        err = compare_trace(np, out_t.cpu().numpy(), ref_t.cpu().numpy(), what)
+        del out_t, ref_t
+        p_ms = cuda_ms(torch, lambda: trace_fwd.trace_bundles_fwd_plain(*targs, **tkw), 1)
+        for _ in range(3):
+            trace_fn(*targs, **tkw)
+        k_ms = cuda_ms(torch, lambda: trace_fn(*targs, **tkw), 10)
+        NBt = targs[1].shape[0]
+        pairs_read = work_t["hit_tests"] // 256
+        b_bytes = 4 * ((13 + 3 * n_sh) * pairs_read + NBt * 256 * 8 + NBt * 256 * 16 + 2 * NBt + 1)
+        b_flops = trace_flops(work_t, n_sh, tkw["exact_order"])
+        tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
+        trace_times[what] = dict(ms=k_ms, plain_ms=p_ms, bound=max(tb_, to_), err=err,
+                                 by="bytes" if tb_ >= to_ else "operations")
+        print(f"  {what}: {NBt} bundles, {int(targs[3].sum())} pairs in segments, {pairs_read} in processed "
+              f"chunks, {int((targs[3] > 0).sum())} bundles with pairs, {int(targs[3].max() + 127) // 128} "
+              f"chunks in the longest segment")
+        print(f"    kernel ms per view: {k_ms:.4f}; plain version ms: {p_ms:.1f}")
+        print(f"    bound ms: {max(tb_, to_):.4f} (by {trace_times[what]['by']}: {b_bytes / 1e6:.1f} MB -> {tb_:.4f} ms, "
+              f"{b_flops / 1e9:.3f} GFLOP -> {to_:.4f} ms: {work_t['hit_tests']} hit tests, {work_t['hits']} hits, "
+              f"{work_t['contribs']} composited, {work_t['sort_compares']:.0f} sort compares); "
+              f"kernel at {100 * max(tb_, to_) / k_ms:.1f} % of it")
+
+    for vset, (_, cams) in view_sets.items():
+        # The budgets the eval ended at for this view set.
+        c_pairs, pairs_ = (max(served[vset, r]["metrics"]["tracer_budgets"][i] for r in "ab") for i in (0, 1))
+        tr_cfg = tracer_api.TracerConfig(exact_order=True, pair_capacity=pairs_, cluster_pair_capacity=c_pairs)
+        cam0 = cams[0]
+        for run, kw, names in (("a", {}, ("env, no mesh (n_sh=16)", "visibility (n_sh=1)")),
+                               ("b", {"mesh": mesh}, ("env, mesh-occluded bundles (n_sh=16)",))):
+            cap = capture_trace(torch, tracer_api, lambda: envgs.render_surfel2(
+                s2_model, env_model, cam0, white, mips, s2_opts, tr_cfg, **kw))
+            check(len(cap) == len(names), f"{vset} view 0, run ({run}): {len(cap)} tracer launches")
+            for name in names:
+                targs, tkw = cap.pop(0)
+                time_trace(f"{vset} view 0, {name}", targs, tkw)
+                del targs
+    print("  library call: none computes this function")
+
+    for vset, (_, cams) in view_sets.items():
+        c_pairs, pairs_ = (max(served[vset, r]["metrics"]["tracer_budgets"][i] for r in "ab") for i in (0, 1))
+        tr_cfg = tracer_api.TracerConfig(exact_order=True, pair_capacity=pairs_, cluster_pair_capacity=c_pairs)
+        cam0 = cams[0]
+        for what, kw in (("splat visibility", {}), ("mesh visibility", {"mesh": mesh})):
+            with torch.no_grad():
+                envgs.render_surfel2(s2_model, env_model, cam0, white, mips, s2_opts, tr_cfg, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                walls = []
+                for _ in range(3):
+                    t1 = time.perf_counter()
+                    pkg = envgs.render_surfel2(s2_model, env_model, cam0, white, mips, s2_opts, tr_cfg, **kw)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+                check(pkg["tracer_overflow"] == 0, f"{vset} view 0, {what}: tracer overflow at the eval's budgets")
+                del pkg
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                ) as prof:
+                    t1 = time.perf_counter()
+                    envgs.render_surfel2(s2_model, env_model, cam0, white, mips, s2_opts, tr_cfg, **kw)
+                    torch.cuda.synchronize()
+                    prof_ms = (time.perf_counter() - t1) * 1e3
+            ev_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in ev_) / 1e3
+            print(f"render_surfel2, {vset} view 0, {what}, 800x800, budgets ({c_pairs}, {pairs_}): "
+                  f"{1e3 * float(np.median(walls)):.1f} ms per view (median of 3, host clock, synchronized); "
+                  f"profiled {prof_ms:.1f} ms with {busy:.1f} ms of device kernels -> device busy "
+                  f"{100 * busy / prof_ms:.1f} %; peak device memory {peak:.2f} GiB")
+            print("  top device kernels (ms per view, launches per view):")
+            for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:12]:
+                print(f"  {e.self_device_time_total / 1e3:9.3f}  {e.count:5d}  {e.key[:90]}")
+        with torch.no_grad():
+            pkg = render_surfel(s2_model, cam0, white, mips, s2_opts)
+            nmap = pkg["rend_normal"] / torch.clamp(pkg["rend_alpha"], min=1e-6)
+            mv_args = (mesh, cam0, nmap, pkg["surf_depth"], pkg["rend_alpha"])
+            mesh_visibility_map(*mv_args, cull_cap=tr_cfg.mesh_cull_cap)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                mesh_visibility_map(*mv_args, cull_cap=tr_cfg.mesh_cull_cap)
+                torch.cuda.synchronize()
+        mesh_dev = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"mesh tracer (mesh_visibility_map, {len(faces)} triangles, {vset} view 0): "
+              f"{mesh_dev:.2f} ms of device kernels")
+
     record = {"kernels": [
         {
             "name": "rasterize_tiles_fwd",
@@ -712,9 +1183,23 @@ def main() -> int:
             "bound_by": bwd_times[9]["by"],
             "library_ms": None,
         },
+        {
+            "name": "trace_bundles_fwd",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/trace_fwd.cu",
+            "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:348",
+            "launches": trace_launches,
+            "max_abs_err": max(t["err"] for t in trace_times.values()),
+            "ms": trace_times[TRACE_ROW]["ms"],
+            "plain_ms": trace_times[TRACE_ROW]["plain_ms"],
+            "bound_ms": trace_times[TRACE_ROW]["bound"],
+            "bound_by": trace_times[TRACE_ROW]["by"],
+            "library_ms": None,
+        },
     ]}
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
-          f"backward {train_bwd}")
+          f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
+          + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items()) + ")")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -303,6 +303,7 @@ extern "C" int rasterize_tiles_bwd(const float* payload, long long ld,
     MRGS_BWD_CASE(7)
     MRGS_BWD_CASE(8)
     MRGS_BWD_CASE(9)
+    MRGS_BWD_CASE(10)
     default:
       return (int)cudaErrorInvalidValue;
   }

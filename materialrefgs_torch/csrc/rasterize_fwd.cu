@@ -214,6 +214,7 @@ extern "C" int rasterize_tiles_fwd(const float* payload, long long ld,
     case 7: return (int)launch<7>(payload, ld, tile_start, tile_count, out, num_tiles, grid_x, W, H, s);
     case 8: return (int)launch<8>(payload, ld, tile_start, tile_count, out, num_tiles, grid_x, W, H, s);
     case 9: return (int)launch<9>(payload, ld, tile_start, tile_count, out, num_tiles, grid_x, W, H, s);
+    case 10: return (int)launch<10>(payload, ld, tile_start, tile_count, out, num_tiles, grid_x, W, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,6 +6,7 @@ available offline, and the JAX package reports the same in their absence.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -15,6 +16,8 @@ import torch
 from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.models.env_light import EnvLightMips
 from materialrefgs_torch.models.gaussian_model import GaussianModel
+from materialrefgs_torch.ops.tracer.api import TracerConfig
+from materialrefgs_torch.render.envgs import render_surfel2
 from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel
 from materialrefgs_torch.train.losses import psnr, ssim
 from materialrefgs_torch.utils.png import write_png
@@ -48,9 +51,11 @@ def render_set(
     envmap: EnvLightMips,
     env_model: GaussianModel | None = None,
     opts: RenderOptions = RenderOptions(),
+    tracer_cfg: TracerConfig = TracerConfig(),
     dump_maps: bool = True,
     bg_color=(0.0, 0.0, 0.0),
     stage: str = "surfel",
+    mesh=None,  # ops.mesh_tracer.MeshData: mesh-traced specular visibility
     gt_normals: list | None = None,  # (H, W, 3) world normals in [-1, 1]
     gt_normal_masks: list | None = None,  # (H, W) foreground masks
 ) -> dict:
@@ -58,33 +63,60 @@ def render_set(
 
     bg_color must match the dataset's composite background (white for the
     Shiny Blender synthetic presets). stage="initial" evaluates the SH-color
-    path of the pre-deferred curriculum phase."""
+    path of the pre-deferred curriculum phase; with `env_model` (an env-GS
+    checkpoint) the deferred stage renders through render_surfel2, and a view
+    whose traces overflow `tracer_cfg` is redone with budgets that fit it
+    (fit_tracer_budgets), kept for the views after it; its time counts the
+    redo."""
     if stage not in ("initial", "surfel"):
         raise NotImplementedError(
             f"stage {stage!r} is not ported yet: the volume stage comes with "
-            "the multi-view/volume slice, surfel2 with the surfel2 slice"
-        )
-    if env_model is not None:
-        raise NotImplementedError(
-            "env-GS checkpoints (env_point_cloud.ply) render through the splat "
-            "tracer, which comes with the surfel2 slice of the port"
+            "the multi-view/volume slice"
         )
     dev = model.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    psnrs, ssims, times, normal_maes, overflows = [], [], [], [], []
+    psnrs, ssims, times, normal_maes, overflows, tracer_overflows = [], [], [], [], [], []
 
-    def run(cam):
+    def run(cam, tcfg):
         if stage == "initial":
             return render_initial(model, cam, bg, opts)
+        if env_model is not None:
+            return render_surfel2(model, env_model, cam, bg, envmap, opts, tcfg, mesh=mesh)
         return render_surfel(model, cam, bg, envmap, opts)
+
+    cull_warned = False
+    redos = 0
 
     for idx, (cam, gt) in enumerate(zip(cameras, images)):
         t0 = time.perf_counter()
-        pkg = run(cam)
+        pkg = run(cam, tracer_cfg)
+        # The JAX package serves a view whose traces overflow their budgets
+        # truncated; the port redoes it with budgets that fit. Two redos
+        # suffice: after the first the cluster budget fits, so the pair
+        # slots the second render reports are exact.
+        for _ in range(2):
+            if int(pkg.get("tracer_overflow", 0)) == 0:
+                break
+            tracer_cfg = fit_tracer_budgets(tracer_cfg, pkg)
+            print(
+                f"[info] eval view {idx}: tracer overflow {int(pkg['tracer_overflow'])}; "
+                f"redone at cluster_pair_capacity {tracer_cfg.cluster_pair_capacity}, "
+                f"pair_capacity {tracer_cfg.pair_capacity}"
+            )
+            redos += 1
+            pkg = run(cam, tracer_cfg)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
         overflows.append(int(pkg["overflow"]))
+        tracer_overflows.append(int(pkg.get("tracer_overflow", 0)))
+        if not cull_warned and int(pkg.get("mesh_cull_dropped", 0)) > 0:
+            print(
+                f"[warn] eval view {idx}: mesh pre-cull dropped "
+                f"{int(pkg['mesh_cull_dropped'])} occluder clusters — "
+                f"visibility maps are truncated; raise TracerConfig.mesh_cull_cap"
+            )
+            cull_warned = True
         gt_t = torch.clamp(torch.as_tensor(gt, dtype=torch.float32, device=dev), 0.0, 1.0)
         # Reference protocol clamps to [0,1] before every metric
         # (eval.py:44-50); deferred specular can overshoot 1.
@@ -121,6 +153,7 @@ def render_set(
             for key, fname in [
                 ("roughness_map", "roughness"),
                 ("refl_strength_map", "metallic"),
+                ("visibility", "visibility"),
             ]:
                 if key in pkg:
                     save_png(f"{base}/{fname}/{idx:05d}.png", _numpy(pkg[key])[..., 0])
@@ -134,10 +167,28 @@ def render_set(
         "fps": float(fps),
         "per_view_psnr": psnrs,
         "normal_mae": float(np.mean(normal_maes)) if normal_maes else None,
-        # Pairs dropped for capacity, worst view; nonzero means truncated
-        # renders (raise the run's pair_capacity).
+        # Rasterizer pairs dropped for capacity, worst view; nonzero means
+        # truncated renders (raise the run's pair_capacity).
         "overflow": max(overflows),
+        # Splat-tracer pairs dropped in the served renders, worst view, the
+        # renders redone at raised budgets, and the budgets the set ended at.
+        "tracer_overflow": max(tracer_overflows),
+        "tracer_redos": redos,
+        "tracer_budgets": (tracer_cfg.cluster_pair_capacity, tracer_cfg.pair_capacity),
     }
+
+
+def fit_tracer_budgets(cfg: TracerConfig, pkg: dict) -> TracerConfig:
+    """`cfg` with budgets that keep every pair `pkg` (a render_surfel2
+    result) asked for, a quarter above it; pair_capacity in whole steps of
+    1<<16 (the segment layout needs a multiple of 128). Never lowered."""
+    step = 1 << 16
+    pairs = -(-int(1.25 * pkg["tracer_pair_slots"]) // step) * step
+    return dataclasses.replace(
+        cfg,
+        cluster_pair_capacity=max(cfg.cluster_pair_capacity, int(1.25 * pkg["tracer_cluster_pairs"])),
+        pair_capacity=max(cfg.pair_capacity, pairs),
+    )
 
 
 def write_metrics(out_dir: str, metrics: dict):

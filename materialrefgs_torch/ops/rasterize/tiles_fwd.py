@@ -42,7 +42,9 @@ from materialrefgs_torch.ops.rasterize.layout import (
 )
 
 SOURCE = nvcc.CSRC / "rasterize_fwd.cu"
-MAX_S = 9  # feature widths the kernel is instantiated for: 1..MAX_S
+# Feature widths the kernels are instantiated for: 1..MAX_S (render_surfel2
+# rasterizes 10: refl, rough, ori_color(3), indirect(3), blend, distance).
+MAX_S = 10
 
 
 @functools.lru_cache(maxsize=1)

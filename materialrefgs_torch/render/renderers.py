@@ -9,9 +9,10 @@ All outputs channel-last (H, W, C). The PGSR-flavor unbiased depth is
 reconstructed from the composited plane-distance and normal maps:
 depth = dist / <n_view, K^-1 (u,v,1)>.
 
-Not in this slice: ASG indirect light (raises NotImplementedError), traced
-visibility / indirect light (surfel2 and the mesh-traced residual) and
-render_volume, which come with later slices of the port.
+The env-GS composite (`render_surfel2`) lives in render/envgs.py; its
+mesh-traced visibility is `mesh_visibility_map` below. Not ported yet: ASG
+indirect light (raises NotImplementedError), the mesh-traced indirect
+residual and render_volume.
 """
 from __future__ import annotations
 
@@ -63,8 +64,8 @@ def _local_distance(pc: GaussianModel, camera: Camera, normals: torch.Tensor):
 def _indirect_light(pc: GaussianModel, camera: Camera, opts: RenderOptions):
     if opts.use_asg:
         raise NotImplementedError(
-            "ASG indirect light (use_asg) is not ported yet; it comes with the "
-            "surfel2 slice of the port"
+            "ASG indirect light (use_asg, utils/asg.py) is not ported yet; "
+            "refnerf has it off"
         )
     normals, dir_pp = _gaussian_normals(pc, camera)
     refl = reflect(-dir_pp, normals)
@@ -219,3 +220,43 @@ def render_surfel(
         }
     )
     return results
+
+
+def mesh_visibility_map(
+    mesh,  # ops.mesh_tracer.MeshData
+    camera: Camera,
+    normal_map: torch.Tensor,  # (H, W, 3) alpha-divided world normal
+    surf_depth: torch.Tensor,  # (H, W) or (H, W, 1)
+    render_alpha: torch.Tensor | None = None,
+    cull_cap: int | None = None,
+    with_dropped: bool = False,
+):
+    """Mesh-traced specular visibility (refl_utils.py:319-330, :381-392):
+    reflect camera rays at the unbiased-depth surface, nearest-hit the
+    extracted mesh, vis = miss (depth >= 10). No gradient flows through it.
+
+    Rays are traced in 16x16 tile bundles, and tiles with no pixel of
+    render_alpha > 0 are skipped (their visibility is 1). with_dropped=True
+    also returns the trace's cull_dropped count (occluder clusters beyond
+    cull_cap that were ignored; 0 = exact)."""
+    from materialrefgs_torch.ops import mesh_tracer as mt
+    from materialrefgs_torch.render.envgs import bundle_alpha_mask, bundles_to_image, rays_to_bundles
+
+    if surf_depth.dim() == 2:
+        surf_depth = surf_depth[..., None]
+    rays_d, rays_o = shading.camera_rays_world(camera, unnormalized=True)
+    surf_points = rays_o[None, None, :] + surf_depth * rays_d
+    w_o = -normalize(rays_d)
+    refl_dir = normalize(reflect(w_o, normal_map))
+    H, W = camera.height, camera.width
+    ro_b = rays_to_bundles(surf_points.detach(), H, W)
+    rd_b = rays_to_bundles(refl_dir.detach(), H, W)
+    mask_b = bundle_alpha_mask(render_alpha, H, W) if render_alpha is not None else None
+    hit = mt.trace(mesh, ro_b, rd_b, cull_cap=cull_cap, block_mask=mask_b)
+    vis_b = (hit["depth"] >= mt.T_FAR).to(torch.float32)[:, None]
+    vis = bundles_to_image(vis_b, H, W)
+    if render_alpha is not None:
+        vis = torch.where(render_alpha <= 0.0, torch.ones_like(vis), vis)
+    if with_dropped:
+        return vis, hit["cull_dropped"]
+    return vis

@@ -8,7 +8,8 @@ All maps are channel-last (H, W, C). Shading contract
   fg         = FG_LUT(NoV, roughness)                       (2,)
   direct     = envmap(refl, roughness)                      sigmoid'd RGB
   spec_w     = (0.04 * (1 - m) + albedo * m) * fg.x + fg.y
-  specular   = direct * alpha * spec_w
+  spec_light = direct * vis + (1 - vis) * indirect          (if vis given)
+  specular   = spec_light * alpha * spec_w
   final      = (1 - m) * base + specular                    (in render paths)
 """
 from __future__ import annotations
@@ -40,10 +41,14 @@ def specular_color_surfel(
     render_alpha: torch.Tensor,  # (H, W, 1)
     refl_strength: torch.Tensor,  # (H, W, 1) metallic
     roughness: torch.Tensor,  # (H, W, 1)
+    visibility: torch.Tensor | None = None,  # (H, W, 1) or None
+    indirect_light: torch.Tensor | None = None,  # (H, W, 3) or None
+    blend_weight: torch.Tensor | None = None,  # (H, W, 1) EnvGS blend (surfel4)
+    indirect_light_residual: torch.Tensor | None = None,  # (H, W, 3)
 ) -> tuple[torch.Tensor, dict]:
-    """Deferred specular shading with direct light only (traced visibility
-    and indirect light come with the surfel2 slice); returns
-    (specular (H,W,3), extras)."""
+    """Deferred specular shading; returns (specular (H,W,3), extras). With
+    visibility and indirect light (the env-GS trace), occluded directions
+    take the traced light instead of the env map's."""
     rays_d, _ = camera_rays_world(camera)
     w_o = -rays_d
     NoV = torch.sum(w_o * normal_map, dim=-1, keepdim=True)
@@ -55,5 +60,20 @@ def specular_color_surfel(
         0.04 * (1 - refl_strength) + albedo * refl_strength
     ) * fg[..., 0:1] + fg[..., 1:2]
 
-    specular = direct_light * render_alpha * specular_weight
-    return specular, {"direct_light": direct_light, "specular_weight": specular_weight}
+    extras = {"direct_light": direct_light, "specular_weight": specular_weight}
+    if visibility is not None and indirect_light is not None:
+        if blend_weight is not None and indirect_light_residual is not None:
+            indirect_light = (1 - blend_weight) * indirect_light + blend_weight * indirect_light_residual
+        specular_light = direct_light * visibility + (1 - visibility) * indirect_light
+        extras["visibility"] = visibility
+        extras["indirect_light"] = indirect_light
+        extras["indirect_color"] = (1 - visibility) * indirect_light * render_alpha * specular_weight
+    elif visibility is not None:
+        # surfel2 flavor: direct light masked by visibility only.
+        specular_light = direct_light * visibility
+        extras["visibility"] = visibility
+    else:
+        specular_light = direct_light
+
+    specular = specular_light * render_alpha * specular_weight
+    return specular, extras

@@ -45,7 +45,7 @@ STAGES = ("initial", "surfel")
 def _later_slice(what: str) -> NotImplementedError:
     where = {
         "volume": "the multi-view/volume slice",
-        "surfel2": "the surfel2 slice",
+        "surfel2": "the surfel2 training slice",
         "warp": "the multi-view/volume slice",
         "mono-normal": "the multi-view/volume slice",
         "ref-score": "the multi-view/volume slice",
@@ -149,8 +149,8 @@ class TrainStep:
             raise _later_slice("surfel2" if stage == "surfel2" else "volume")
         if pipe.use_asg:
             raise NotImplementedError(
-                "ASG indirect light (use_asg) is not ported yet; it comes with the "
-                "surfel2 slice of the port"
+                "ASG indirect light (use_asg, utils/asg.py) is not ported yet; "
+                "refnerf has it off"
             )
         self.stage = stage
         self.opt = opt

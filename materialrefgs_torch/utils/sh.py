@@ -90,6 +90,38 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return result
 
 
+def sh_basis(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, n_sh: int) -> list:
+    """Real SH basis values on unit-direction components, in eval_sh's
+    ordering: a list of n_sh tensors shaped like x (n_sh in 1, 4, 9, 16).
+    The bundle tracer evaluates each ray's color with these; its CUDA kernel
+    repeats the expressions operation for operation."""
+    if n_sh not in (1, 4, 9, 16):
+        raise ValueError(f"n_sh must be 1, 4, 9 or 16, got {n_sh}")
+    Y = [torch.full_like(x, C0)]
+    if n_sh >= 4:
+        Y += [-C1 * y, C1 * z, -C1 * x]
+    if n_sh >= 9:
+        xx, yy, zz = x * x, y * y, z * z
+        Y += [
+            C2[0] * x * y,
+            C2[1] * y * z,
+            C2[2] * (2.0 * zz - xx - yy),
+            C2[3] * x * z,
+            C2[4] * (xx - yy),
+        ]
+    if n_sh >= 16:
+        Y += [
+            C3[0] * y * (3.0 * xx - yy),
+            C3[1] * x * y * z,
+            C3[2] * y * (4.0 * zz - xx - yy),
+            C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+            C3[4] * x * (4.0 * zz - xx - yy),
+            C3[5] * z * (xx - yy),
+            C3[6] * x * (xx - 3.0 * yy),
+        ]
+    return Y
+
+
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does: +0.5 then clamp to >= 0.
     sh: (..., 3, K), dirs: (..., 3) (need not be normalized)."""

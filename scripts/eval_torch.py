@@ -2,6 +2,14 @@
 load a trained model, render the train/test sets, write metrics + per-map
 PNGs. Runs on the CUDA card unless --device cpu is given.
 
+An env-GS checkpoint (`env_point_cloud.ply` beside `point_cloud.ply`, as the
+`surfel2` stage writes) renders through render_surfel2, with mesh-traced
+visibility when the run dumped `meshes/*.ply` (the newest is used). The
+tracer's budgets start as scripts/eval.py sets them (`pair_capacity` from the
+run's cfg_args.json, 1<<14 stage-1 cluster pairs); where a view's traces need
+more, evaluate.render_set redoes it with budgets that fit instead of serving
+it truncated.
+
 Usage: python scripts/eval_torch.py -m output/helmet -s /data/refnerf/helmet
 """
 import argparse
@@ -73,8 +81,8 @@ def main(argv=None) -> dict:
         )
     if args.export_material_mesh:
         raise NotImplementedError(
-            "--export_material_mesh needs the mesh tracer, which comes with "
-            "the surfel2 slice of the port"
+            "--export_material_mesh (bake_vertex_attrs, train/mesh_material.py) "
+            "is not ported yet; it comes with the surfel2 training slice of the port"
         )
 
     import torch
@@ -86,8 +94,11 @@ def main(argv=None) -> dict:
     from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams
     from materialrefgs_torch.models.scene import Scene
     from materialrefgs_torch.ops.cubemap import cubemap_to_latlong
+    from materialrefgs_torch.ops import mesh_tracer
     from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+    from materialrefgs_torch.ops.tracer.api import TracerConfig
     from materialrefgs_torch.render.renderers import RenderOptions
+    from materialrefgs_torch.train.mesh_extract import read_mesh_ply
     from materialrefgs_torch.train.stages import select_stage
 
     device = resolve_device(args.device)
@@ -114,11 +125,6 @@ def main(argv=None) -> dict:
     if it < 0:
         iters = [int(d.split("_")[-1]) for d in os.listdir(pc_dir) if d.startswith("iteration_")]
         it = max(iters)
-    if os.path.exists(os.path.join(pc_dir, f"iteration_{it}", "env_point_cloud.ply")):
-        raise NotImplementedError(
-            "env-GS checkpoints (env_point_cloud.ply) render through the splat "
-            "tracer, which comes with the surfel2 slice of the port"
-        )
     # Mid-curriculum checkpoints evaluate on the path they trained with
     # (select_render_method): initial / volume / deferred.
     eval_stage = select_stage(it, opt)
@@ -149,6 +155,21 @@ def main(argv=None) -> dict:
                 img = torch.sigmoid(cubemap_to_latlong(env.base, 512, 1024))
                 save_png(os.path.join(args.model_path, f"{name}.png"), torch.clamp(img, 0, 1))
 
+    env_ply = os.path.join(pc_dir, f"iteration_{it}", "env_point_cloud.ply")
+    env_model = None
+    if os.path.exists(env_ply):
+        env_model, _, _ = gaussian_io.load_ply(env_ply, max_sh_degree=model_params.sh_degree, device=device)
+
+    # Mesh-traced specular visibility from the newest mesh the run dumped.
+    mesh = None
+    mesh_dir = os.path.join(args.model_path, "meshes")
+    if env_model is not None and os.path.isdir(mesh_dir):
+        plys = sorted(p for p in os.listdir(mesh_dir) if p.endswith(".ply"))
+        if plys:
+            verts, faces = read_mesh_ply(os.path.join(mesh_dir, plys[-1]))
+            mesh = mesh_tracer.build_mesh(verts, faces, device=device)
+            print(f"Mesh visibility: {plys[-1]} ({len(faces)} tris)")
+
     opts = RenderOptions(
         srgb=opt.srgb,
         unbiased_depth=pipe.unbiased_depth,
@@ -156,6 +177,9 @@ def main(argv=None) -> dict:
         depth_ratio=pipe.depth_ratio,
         raster=RasterizeConfig(pair_capacity=int(extra_cfg.get("pair_capacity", 1 << 20))),
     )
+    # Final renders composite the traced indirect light in each ray's exact
+    # order within every chunk.
+    tr_cfg = TracerConfig(exact_order=True, pair_capacity=int(extra_cfg.get("pair_capacity", 1 << 19)))
     bg = (1.0, 1.0, 1.0) if model_params.white_background else (0.0, 0.0, 0.0)
     out_dir = os.path.join(args.model_path, f"eval_{it}")
     results = {}
@@ -168,8 +192,9 @@ def main(argv=None) -> dict:
         if gt_normals is not None:
             print(f"GT normals found for {len(gt_normals)} test views (normal MAE on)")
         m = render_set(
-            out_dir, "test", scene.test_cameras, images, model, mips, None, opts,
-            bg_color=bg, stage=eval_stage, gt_normals=gt_normals, gt_normal_masks=gt_nmasks,
+            out_dir, "test", scene.test_cameras, images, model, mips, env_model, opts,
+            tracer_cfg=tr_cfg, bg_color=bg, mesh=mesh, stage=eval_stage,
+            gt_normals=gt_normals, gt_normal_masks=gt_nmasks,
         )
         write_metrics(out_dir, m)
         print("test:", {k: v for k, v in m.items() if k != "per_view_psnr"})
@@ -177,8 +202,8 @@ def main(argv=None) -> dict:
     if not args.skip_train:
         images = [scene.train_image(i) for i in range(len(scene.train_cameras))]
         m = render_set(
-            out_dir, "train", scene.train_cameras, images, model, mips, None, opts,
-            bg_color=bg, stage=eval_stage,
+            out_dir, "train", scene.train_cameras, images, model, mips, env_model, opts,
+            tracer_cfg=tr_cfg, bg_color=bg, mesh=mesh, stage=eval_stage,
         )
         print("train:", {k: v for k, v in m.items() if k != "per_view_psnr"})
         results["train"] = m

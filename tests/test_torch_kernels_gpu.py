@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (tile rasterizer forward and
-backward) against their plain torch versions, on the card. Marked `gpu`; each test skips where no CUDA card is present.
+backward, bundle tracer forward) against their plain torch versions, on the
+card. Marked `gpu`; each test skips where no CUDA card is present.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -14,6 +15,9 @@ from materialrefgs_torch.cameras import look_at_camera  # noqa: E402
 from materialrefgs_torch.ops.rasterize import api  # noqa: E402
 from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd  # noqa: E402
 from materialrefgs_torch.ops.rasterize.layout import out_layout  # noqa: E402
+from materialrefgs_torch.ops.tracer import api as tracer_api  # noqa: E402
+from materialrefgs_torch.ops.tracer import layout as tlay  # noqa: E402
+from materialrefgs_torch.ops.tracer import trace_fwd  # noqa: E402
 
 # Per output group (tests/test_rasterize_pallas.py); contributor indices exact.
 TOLS = {
@@ -43,7 +47,7 @@ def _scene(seed, P, S, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [1, 9])
+@pytest.mark.parametrize("S", [1, 9, 10])
 @pytest.mark.parametrize("size", [(256, 192), (201, 133)])
 def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
     W, H = size
@@ -75,7 +79,7 @@ def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [1, 9])
+@pytest.mark.parametrize("S", [1, 9, 10])
 @pytest.mark.parametrize("size", [(256, 192), (201, 133)])
 def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
     """Per-pair gradients for a random cotangent, every gradient value within
@@ -133,3 +137,68 @@ def test_rasterize_autograd_launches_both_kernels(cuda_device):
     assert tiles_bwd.rasterize_tiles_bwd.launches == b0 + 1
     for g in grads:
         assert torch.isfinite(g).all()
+
+
+def _trace_scene(seed, device, P=4000, NB=12):
+    """Surfels in front of 12 coherent ray bundles looking down +z; bundle 3
+    is masked (an empty segment) and bundles 8-11 look into an opaque core
+    (every ray stops, the bundle exits early)."""
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.uniform(-1.2, 1.2, (P, 3)), rng.normal(size=(P // 4, 3)) * 0.15])
+    means[:, 2] = np.abs(means[:, 2]) + 0.2 * np.arange(len(means)) / len(means)
+    n = len(means)
+    opac = np.concatenate([rng.uniform(0.2, 0.9, P), np.full(P // 4, 0.98)])
+    shs = rng.normal(size=(n, 16, 3)) * 0.3
+    o = np.zeros((NB, 256, 3))
+    o[..., :2] = rng.uniform(-0.3, 0.3, (NB, 256, 2)) + rng.uniform(-0.8, 0.8, (NB, 1, 2))
+    o[8:, :, :2] *= 0.1
+    o[..., 2] = -3.0
+    d = np.zeros((NB, 256, 3))
+    d[..., :2] = rng.uniform(-0.05, 0.05, (NB, 256, 2))
+    d[..., 2] = 1.0
+    arrays = (o.reshape(-1, 3), d.reshape(-1, 3), means, np.exp(rng.normal(size=(n, 2)) * 0.3 - 2.6),
+              rng.normal(size=(n, 4)), opac, shs)
+    mask = torch.ones(NB, dtype=torch.bool, device=device)
+    mask[3] = False
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays], mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [False, True], ids=["list", "exact"])
+@pytest.mark.parametrize("n_sh", [1, 16])
+def test_trace_fwd_kernel_matches_plain(cuda_device, n_sh, exact):
+    """All 16 output channels; n_contrib and NPROC identical, the float
+    channels within 1e-5 of each value + 1e-6 (the kernel repeats the plain
+    version's operations in its order, built without FMA contraction)."""
+    (o, d, means, scales, rots, opac, shs), mask = _trace_scene(3, cuda_device)
+    captured = {}
+    real = tracer_api.trace_bundles_fwd
+
+    def capture(*args, **kw):
+        captured["args"], captured["kw"] = args, kw
+        return real(*args, **kw)
+
+    tracer_api.trace_bundles_fwd = capture
+    try:
+        with torch.no_grad():
+            res = tracer_api.trace(o, d, means, scales, rots, opac, shs,
+                                   tracer_api.TracerConfig(pair_capacity=1 << 17, exact_order=exact),
+                                   sh_degree=3 if n_sh == 16 else 0, bundle_mask=mask)
+    finally:
+        tracer_api.trace_bundles_fwd = real
+    assert res["overflow"] == 0
+    args, kw = captured["args"], captured["kw"]
+    count = args[3]
+    assert int(count[3]) == 0 and int(count.max()) > 3 * tlay.K_CHUNK
+    before = trace_fwd.trace_bundles_fwd.launches
+    out = trace_fwd.trace_bundles_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert trace_fwd.trace_bundles_fwd.launches == before + 1
+    ref = trace_fwd.trace_bundles_fwd_plain(*args, **kw)
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    nproc = ref[:, 0, tlay.OUT_NPROC]
+    n_chunks = (count.cpu().numpy() + tlay.K_CHUNK - 1) // tlay.K_CHUNK
+    assert (nproc[8:] < n_chunks[8:]).any()  # an early exit
+    for c in (tlay.OUT_NCONTRIB, tlay.OUT_NPROC):
+        assert np.array_equal(out[..., c], ref[..., c]), c
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)

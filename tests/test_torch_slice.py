@@ -186,10 +186,13 @@ def test_eval_end_to_end_matches_jax(tmp_path, monkeypatch, same_texel_grid):
 
 
 def _setup_env_cloud(root):
+    """An env-GS checkpoint is served now (tests/test_torch_envgs.py); the
+    material-mesh export beside it waits for the surfel2 training slice."""
     d = root / "point_cloud" / "iteration_5"
     d.mkdir(parents=True)
     (d / "env_point_cloud.ply").write_bytes(b"")
-    return []
+    (root / "meshes").mkdir()
+    return ["--export_material_mesh"]
 
 
 def _setup_volume_stage(root):
