@@ -15,7 +15,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      view itself (the backward kernel with a random cotangent); the bundle
      tracer on a mid-size random scene (multi-chunk segments, an empty
      segment, bundles that exit early) for n_sh 1 and 16 in list and exact
-     order, all 16 output channels;
+     order, all 16 output channels, and its backward with a cotangent from a
+     seed on rgb, depth, normal and final_T;
   4. serve a full-width refnerf model (150k splats, SH degree 3, all
      materials, 128^2 env, 800x800, S=9) through scripts/eval_torch.py's path:
      the model is written with the port's save_ply, 8 ground-truth views are
@@ -55,10 +56,30 @@ Phases (any failure exits non-zero before the result lines are printed):
      redoes a view that overflows them at budgets that fit; counts zeroed
      just before each run, read right after;
  11. for view 0 of each set, the tracer kernel against its plain version at
-     the inputs the eval's path gives it (each launch kind), its time (CUDA
-     events), its plain version's and its bound; one render_surfel2 view per
-     visibility mode under torch.profiler with its peak device memory, and
-     the mesh tracer's device time.
+     the inputs the eval's path gives it (each launch kind; a ring view's
+     visibility and mesh-gated launches on 192 of their bundles), its time
+     (CUDA events), its plain version's (timed in the comparison run) and
+     its bound; the tracer's backward kernel alone at ring view 0's
+     env-trace inputs (time, bound, peak memory); one render_surfel2 view
+     per visibility mode under torch.profiler with its peak device memory,
+     and the mesh tracer's device time;
+ 12. train the refnerf `surfel2` stage at full width through
+     scripts/train_torch.py: --start_ply from phase 7's iteration_60 at
+     --start_iter 200 (indirect_from_iter at --schedule_scale 0.01),
+     --iterations 240: 40 steps with env-GS traced indirect light, mesh
+     visibility and exact order, over the onset (env init, mesh extraction,
+     the budget probe), the mesh re-extraction at 220, env densify every 5
+     iterations and the env reset at 240, test marks at 220 and 240; counts
+     zeroed just before, read right after; the saved directory (PLY, env PLY,
+     mesh) served through scripts/eval_torch.py;
+ 13. learning check: 30 `surfel2` steps from the same onset (and phase
+     12's onset mesh) with densification, resets and mesh re-extraction off
+     must raise the train PSNR by >= 0.3 dB;
+ 14. the tracer's backward kernel at one training step's captured inputs:
+     its time on the whole step, and against its plain version, both times
+     and its bound on 192 of the step's bundles; and the Trainer's
+     `surfel2` step (host clock, torch.profiler device-busy share and top
+     kernels, the mesh tracer's device time, peak memory).
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -117,6 +138,14 @@ TRAIN_W = TRAIN_H = 800
 TRAIN_VIEWS, TEST_VIEWS = 8, 4
 TRAIN_ITERS = 60
 TRAIN_TEST_MARKS = (30, 60)
+# The surfel2 run starts at indirect_from_iter (20000 x 0.01) from phase 7's
+# PLY of iteration 50: as at the real onset (20,000), the normal-propagation
+# reset has just pulled the opacities up to 0.9. Iteration 60's PLY is taken
+# right after an opacity reset to 0.01, from which the first prune (at 205)
+# removes every splat.
+S2_FROM = 50
+S2_START, S2_END = 200, 240
+S2_TEST_MARKS = (220, 240)
 W = H = 800
 N_VIEWS = 8
 P_SPLATS = 150_000
@@ -134,8 +163,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip smoke failed: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n=== {name} ===", flush=True)
+    print(f"\n=== {name} === (at {time.perf_counter() - T_START:.0f} s)", flush=True)
 
 
 def bench_scene(np, P=P_SPLATS, seed=0):
@@ -257,6 +289,67 @@ TRACE_HIT_FLOPS = 45
 # The tracer launch the kernels' record reports: the env trace of a view that
 # sees the whole object.
 TRACE_ROW = "ring view 0, env, no mesh (n_sh=16)"
+# Phase 11's other launch kinds above this many pairs hold the kernel to its
+# plain version on this many of their bundles (the plain version takes ~40 s
+# per ring-view launch on every bundle).
+SUBSET_PAIRS, SUBSET_BUNDLES = 20_000_000, 192
+# Bundles of a training step's env trace on which phase 14 holds and times the
+# tracer's backward against its plain version, and the longest segment (in
+# 128-pair chunks) a bundle of these subsets may have.
+STEP_SUBSET, SHORT_WALK = 192, 64
+
+
+# FP32 operations the tracer's backward needs (csrc/trace_bwd.cu) for this
+# data: the hit test (45) per (ray, pair) of a walked chunk; per hit its color
+# 3 (2 n_sh + 1), G (14) and the walk's log1p, T, w, dL/dalpha and the two
+# carries (12); per composited hit the chain rule to the 13 geometry rows and
+# the ray (~90), the SH rows and the basis gradient 3 x 3 n_sh, and one add
+# into each of the 13 + 3 n_sh row sums. Exact order adds its sort.
+TRACE_BWD_CHAIN_FLOPS = 90
+
+
+def trace_bwd_flops(work, n_sh, exact):
+    per_hit = 3 * (2 * n_sh + 1) + 14 + 12
+    per_contrib = TRACE_BWD_CHAIN_FLOPS + 9 * n_sh + 13 + 3 * n_sh
+    flops = TRACE_HIT_FLOPS * work["hit_tests"] + per_hit * work["hits"] + per_contrib * work["contribs"]
+    return flops + (work["sort_compares"] if exact else 0.0)
+
+
+def trace_bwd_bytes(n_sh, pairs, NB):
+    """Payload read and dpayload written once (13 + 3 n_sh rows per pair);
+    rays, forward output and cotangent read, ray gradients written."""
+    return 4 * (2 * (13 + 3 * n_sh) * pairs + NB * 256 * (8 + 16 + 16 + 8) + 3 * NB + 1)
+
+
+def compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh, what):
+    """The backward kernel's payload and ray gradients against the plain
+    version's, per value within BWD_RTOL x min(|value| + the group's p99
+    |value|, the group's max) + BWD_ATOL, for each payload row group and ray
+    origin and direction; prints each group's median, p99 and max |err|.
+    Returns the largest error."""
+    nrow = 13 + 3 * n_sh
+    check(bool(torch.isfinite(dp).all()) and bool(torch.isfinite(dr).all()), f"{what}: non-finite gradients")
+    check(bool((dp[nrow:] == 0).all()) and bool((dr[..., 6:] == 0).all()), f"{what}: padding not zero")
+    groups = {"center": dp[0:3], "tu": dp[3:6], "tv": dp[6:9], "normal": dp[9:12], "opacity": dp[12:13],
+              "sh": dp[13:nrow], "origin": dr[..., 0:3], "direction": dr[..., 3:6]}
+    refs = {"center": rp[0:3], "tu": rp[3:6], "tv": rp[6:9], "normal": rp[9:12], "opacity": rp[12:13],
+            "sh": rp[13:nrow], "origin": rr[..., 0:3], "direction": rr[..., 3:6]}
+    worst, cells = 0.0, []
+    for name, a in groups.items():
+        b = refs[name]
+        diff = (a - b).abs()
+        pct, biggest = magnitude_quantile(torch, b, BWD_PCT), float(b.abs().max())
+        tol = BWD_RTOL * torch.clamp(b.abs() + pct, max=biggest) + BWD_ATOL
+        ratio = float((diff / tol).max())
+        nz = diff[(a != 0) | (b != 0)]
+        med = float(nz.median()) if nz.numel() else 0.0
+        p99 = magnitude_quantile(torch, nz, 0.99)
+        cells.append(f"{name} {med:.1e}/{p99:.1e}/{float(diff.max()):.1e} (err/tol {ratio:.2e})")
+        check(biggest > 0, f"{what}: the {name} gradient is zero everywhere")
+        check(ratio <= 1.0, f"{what}: the {name} gradient is outside the per-value tolerance")
+        worst = max(worst, float(diff.max()))
+    print(f"    {what}: median/p99/max |err| per group: " + ", ".join(cells))
+    return worst
 
 
 def trace_flops(work, n_sh, exact):
@@ -360,6 +453,20 @@ def env_cloud_arrays(np, PARAM_SHAPES, rgb_to_sh, torch, P=P_SPLATS, seed=1):
     return arrays
 
 
+def short_walk_subset(args, n):
+    """The tracer inputs (payload, rays, seg_start, seg_count, ...per-bundle
+    arrays) cut to n bundles with pairs and at most SHORT_WALK chunks, evenly
+    spread over them. The plain versions walk a chunk's 128 positions one at
+    a time, so their time follows the longest segment (a silhouette
+    bundle's 800-1,200 chunks: about a minute), not the bundle count."""
+    import torch
+
+    count = args[3]
+    ok = torch.nonzero((count > 0) & (count <= SHORT_WALK * 128)).squeeze(1)
+    idx = ok[:: max(1, ok.numel() // n)][:n]
+    return (args[0], args[1][idx], torch.cat([args[2][idx], args[2][-1:]]), *(x[idx] for x in args[3:]))
+
+
 def capture_trace(torch, tracer_api, fn):
     """Run fn() under no_grad and return the (args, kwargs) of every tracer
     kernel call it makes, the payload cut to the columns its segments use."""
@@ -406,7 +513,7 @@ def main() -> int:
     from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, acc_channels, out_layout
     from materialrefgs_torch.ops.tracer import api as tracer_api
-    from materialrefgs_torch.ops.tracer import trace_fwd
+    from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
     from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
     from materialrefgs_torch.utils import png
     from materialrefgs_torch.utils.sh import rgb_to_sh
@@ -415,6 +522,7 @@ def main() -> int:
     kernel_fn = tiles_fwd.rasterize_tiles_fwd
     bwd_fn = tiles_bwd.rasterize_tiles_bwd
     trace_fn = trace_fwd.trace_bundles_fwd
+    trace_bwd_fn = trace_bwd.trace_bundles_bwd
 
     # ------------------------------------------------------------------ 1 --
     phase("1. card")
@@ -432,9 +540,9 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd, trace_fwd)))
-    print(f"3 kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd, trace_fwd, trace_bwd)))
+    print(f"4 kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for lib_path, log in builds:
         print(f"{os.path.relpath(lib_path, REPO)}:")
         print(log.strip() or "(already built)")
@@ -549,6 +657,9 @@ def main() -> int:
         trng.normal(size=(nm, 4)), opac_m, trng.normal(size=(nm, 16, 3)) * 0.3)]
     bmask = torch.ones(NBm, dtype=torch.bool, device=dev)
     bmask[5] = False
+    tbwd_errs = []
+    print(f"  tracer backward tolerance per value: {BWD_RTOL:g} x min(|grad| + the group's p99 |grad|, "
+          f"the group's max |grad|) + {BWD_ATOL:g}")
     for n_sh in (1, 16):
         for exact in (False, True):
             captured = capture_trace(torch, tracer_api, lambda: tracer_api.trace(
@@ -567,6 +678,24 @@ def main() -> int:
                           f"mid scene, n_sh={n_sh}, {'exact' if exact else 'list'} order, "
                           f"{int(cnt.sum())} pairs, {int(chunks.max())} chunks in the longest segment, "
                           f"{int((nproc < chunks).sum())} bundles exit early")
+            # The backward on the forward kernel's output, with a cotangent
+            # from a seed on rgb, depth, normal and final_T.
+            if exact:
+                active = torch.amax(out_t[..., 10], dim=1).to(torch.int32) * 128
+            else:
+                active = torch.amax(out_t[..., 8], dim=1).to(torch.int32)
+            cot = torch.zeros_like(out_t)
+            cot[..., :8] = torch.randn(out_t.shape[:2] + (8,), device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(10 * n_sh + exact))
+            bargs = (*targs, active, out_t, cot)
+            dp, dr = trace_bwd_fn(*bargs, **tkw)
+            torch.cuda.synchronize()
+            rp, rr = trace_bwd.trace_bundles_bwd_plain(*bargs, **tkw)
+            tbwd_errs.append(compare_trace_bwd(
+                np, torch, dp, dr, rp, rr, n_sh,
+                f"mid scene backward, n_sh={n_sh}, {'exact' if exact else 'list'} order, "
+                f"{int(active.max())} positions in the longest walk"))
+            del dp, dr, rp, rr
 
     # ------------------------------------------------------------------ 4 --
     phase("4. serve a full-width refnerf model through scripts/eval_torch.py")
@@ -713,6 +842,7 @@ def main() -> int:
                   "--iterations", str(TRAIN_ITERS), "--capacity", str(1 << 19),
                   "--pair_capacity", str(1 << 20), "--log_every", "1",
                   "--checkpoint_iterations", str(TRAIN_ITERS // 2),
+                  "--save_iterations", str(S2_FROM), str(TRAIN_ITERS),
                   "--test_iterations", *map(str, TRAIN_TEST_MARKS)]
     print("  python scripts/train_torch.py " + " ".join(train_argv))
     torch.cuda.reset_peak_memory_stats()
@@ -1064,33 +1194,85 @@ def main() -> int:
 
     def time_trace(what, targs, tkw):
         """The kernel against its plain version on one launch's inputs, both
-        times, and the bound counted from the plain version's outcomes."""
+        times, and the bound counted from the plain version's outcomes. Past
+        SUBSET_PAIRS pairs (the ring views' 21-68M), only the launch the
+        kernels' record reports (TRACE_ROW) runs the plain version on every
+        bundle; the others compare and time it on SUBSET_BUNDLES of their
+        bundles (short_walk_subset), and their bound, which needs the plain
+        version's outcomes on every bundle, is not counted (PERF.md keeps
+        PR 3's)."""
         n_sh = tkw["n_sh"]
+        full = targs
+        subset = what != TRACE_ROW and int(targs[3].sum()) > SUBSET_PAIRS
+        if subset:
+            targs = short_walk_subset(targs, SUBSET_BUNDLES)
         out_t = trace_fn(*targs, **tkw)
         torch.cuda.synchronize()
         work_t = {}
-        ref_t = trace_fwd.trace_bundles_fwd_plain(*targs, **tkw, work=work_t)
-        err = compare_trace(np, out_t.cpu().numpy(), ref_t.cpu().numpy(), what)
-        del out_t, ref_t
-        p_ms = cuda_ms(torch, lambda: trace_fwd.trace_bundles_fwd_plain(*targs, **tkw), 1)
+        # The plain version is timed in its comparison run.
+        res_t = {}
+        p_ms = cuda_ms(torch, lambda: res_t.update(
+            ref=trace_fwd.trace_bundles_fwd_plain(*targs, **tkw, work=work_t)), 1)
+        err = compare_trace(np, out_t.cpu().numpy(), res_t.pop("ref").cpu().numpy(),
+                            what + (f", {targs[1].shape[0]} of its bundles" if subset else ""))
         for _ in range(3):
-            trace_fn(*targs, **tkw)
-        k_ms = cuda_ms(torch, lambda: trace_fn(*targs, **tkw), 10)
-        NBt = targs[1].shape[0]
+            trace_fn(*full, **tkw)
+        k_ms = cuda_ms(torch, lambda: trace_fn(*full, **tkw), 10)
+        if what == TRACE_ROW:
+            time_trace_bwd(targs, tkw, out_t, work_t)
+        del out_t
+        NBt = full[1].shape[0]
+        print(f"  {what}: {NBt} bundles, {int(full[3].sum())} pairs in segments, "
+              f"{int((full[3] > 0).sum())} bundles with pairs, {int(full[3].max() + 127) // 128} "
+              f"chunks in the longest segment")
+        if subset:
+            trace_times[what] = dict(ms=k_ms, plain_ms=None, bound=None, err=err, by=None)
+            print(f"    kernel ms per view: {k_ms:.4f}; plain version ms on {targs[1].shape[0]} bundles "
+                  f"({int(targs[3].sum())} pairs): {p_ms:.1f}; bound not counted (see time_trace)")
+            return
         pairs_read = work_t["hit_tests"] // 256
         b_bytes = 4 * ((13 + 3 * n_sh) * pairs_read + NBt * 256 * 8 + NBt * 256 * 16 + 2 * NBt + 1)
         b_flops = trace_flops(work_t, n_sh, tkw["exact_order"])
         tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
         trace_times[what] = dict(ms=k_ms, plain_ms=p_ms, bound=max(tb_, to_), err=err,
                                  by="bytes" if tb_ >= to_ else "operations")
-        print(f"  {what}: {NBt} bundles, {int(targs[3].sum())} pairs in segments, {pairs_read} in processed "
-              f"chunks, {int((targs[3] > 0).sum())} bundles with pairs, {int(targs[3].max() + 127) // 128} "
-              f"chunks in the longest segment")
-        print(f"    kernel ms per view: {k_ms:.4f}; plain version ms: {p_ms:.1f}")
+        print(f"    {pairs_read} pairs in processed chunks; kernel ms per view: {k_ms:.4f}; plain version ms "
+              f"(timed in its comparison run): {p_ms:.1f}")
         print(f"    bound ms: {max(tb_, to_):.4f} (by {trace_times[what]['by']}: {b_bytes / 1e6:.1f} MB -> {tb_:.4f} ms, "
               f"{b_flops / 1e9:.3f} GFLOP -> {to_:.4f} ms: {work_t['hit_tests']} hit tests, {work_t['hits']} hits, "
               f"{work_t['contribs']} composited, {work_t['sort_compares']:.0f} sort compares); "
               f"kernel at {100 * max(tb_, to_) / k_ms:.1f} % of it")
+
+    bwd_ring = {}
+
+    def time_trace_bwd(targs, tkw, out_t, work_t):
+        """The backward kernel alone at this launch's inputs (exact order:
+        the walk covers the NPROC chunks the forward processed), a cotangent
+        from a seed; its bound from the forward's work counts, which count
+        the same walked chunks, hits and composited hits."""
+        n_sh = tkw["n_sh"]
+        active = torch.amax(out_t[..., 10], dim=1).to(torch.int32) * 128
+        cot = torch.zeros_like(out_t)
+        cot[..., :8] = torch.randn(out_t.shape[:2] + (8,), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(11))
+        bargs = (*targs, active, out_t, cot)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dp, dr = trace_bwd_fn(*bargs, **tkw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dr).all()) and bool(torch.isfinite(dp).all()), "ring view 0 backward: non-finite")
+        del dp, dr
+        ms_ = cuda_ms(torch, lambda: trace_bwd_fn(*bargs, **tkw), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pairs_read = work_t["hit_tests"] // 256
+        b_bytes = trace_bwd_bytes(n_sh, pairs_read, targs[1].shape[0])
+        b_flops = trace_bwd_flops(work_t, n_sh, True)
+        tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
+        bwd_ring.update(ms=ms_, bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations", peak=peak)
+        print(f"    backward kernel at these inputs (n_sh={n_sh}, exact, {int(active.max()) // 128} chunks in the "
+              f"longest walk): {ms_:.3f} ms; bound {max(tb_, to_):.4f} ms (by {bwd_ring['by']}: "
+              f"{b_bytes / 1e6:.1f} MB -> {tb_:.4f} ms, {b_flops / 1e9:.3f} GFLOP -> {to_:.4f} ms); kernel at "
+              f"{100 * max(tb_, to_) / ms_:.1f} % of it; peak device memory {peak:.2f} GiB; no plain run at this size")
 
     for vset, (_, cams) in view_sets.items():
         # The budgets the eval ended at for this view set.
@@ -1156,6 +1338,219 @@ def main() -> int:
         print(f"mesh tracer (mesh_visibility_map, {len(faces)} triangles, {vset} view 0): "
               f"{mesh_dev:.2f} ms of device kernels")
 
+    # ----------------------------------------------------------------- 12 --
+    phase("12. train refnerf surfel2 at full width through scripts/train_torch.py")
+    from materialrefgs_torch.ops.tracer.api import TracerConfig
+
+    start_dir = os.path.join(run_path, "point_cloud", f"iteration_{S2_FROM}")
+    s2_run = os.path.join(work_dir, "surfel2_run")
+    # --densify_until_iter 200: the main model neither densifies nor resets
+    # past the onset here. The 50-step model's splats are wider than the
+    # 20-pixel screen-size prune allows (phase 7 never met that prune: its
+    # post-reset grace covered 31-60), so the prune at 205 removes 98 % of
+    # them and the run then traces a near-empty model; the opacity reset at
+    # 210 leaves nothing for the TSDF at 220. The env model's upkeep (densify
+    # every 5, reset at 240) runs before that cut-off and is unaffected.
+    s2_argv = ["-s", train_scene, "-m", s2_run, "--schedule_scale", "0.01", "--start_ply", start_dir,
+               "--start_iter", str(S2_START), "--iterations", str(S2_END), "--capacity", str(1 << 19),
+               "--pair_capacity", str(1 << 20), "--densify_until_iter", str(S2_START), "--log_every", "1",
+               "--test_iterations", *map(str, S2_TEST_MARKS)]
+    print("  python scripts/train_torch.py " + " ".join(s2_argv))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn):
+        fn.launches = 0  # counts of this path's run only
+    t0 = time.perf_counter()
+    s2_res = train_torch.main(s2_argv)
+    torch.cuda.synchronize()
+    s2_s = time.perf_counter() - t0
+    s2_launches = {fn.__name__: fn.launches for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn)}
+    s2_peak = torch.cuda.max_memory_allocated() / 2**30
+    s2_tr = s2_res["trainer"]
+    s2_log = s2_tr.metrics_log
+    n_s2 = S2_END - S2_START
+    print(f"  {len(s2_log)} steps in {s2_s:.1f} s; peak device memory {s2_peak:.2f} GiB; kernel launches {s2_launches}")
+    for it, n_tris, secs in s2_tr.mesh_log:
+        print(f"  mesh extraction at iteration {it}: {n_tris} triangles, {secs:.2f} s")
+    print("  env-trace pairs per step: " + " ".join(str(int(m["tracer_pairs"])) for m in s2_log))
+    for m in s2_log:
+        if m["iteration"] in (201, 202, 205, 206, 210, 220, 221, 230, 240) or m["renders_redone"] > 0:
+            print(f"    it {m['iteration']:3d} {m['stage']:8s} loss {m['loss']:.5f} psnr {m['psnr']:.3f} n_alive "
+                  f"{m['n_alive']} env_n_alive {m['env_n_alive']} tracer pairs {m['tracer_pairs']:.0f} "
+                  f"(overflow redone {m['tracer_overflow_redone']:.0f}) renders redone {m['renders_redone']:.0f} "
+                  f"|g_env| xyz {m['env_grad_xyz']:.2e} opacity {m['env_grad_opacity']:.2e} sh {m['env_grad_sh']:.2e}")
+    s2_redo = sum(m["renders_redone"] for m in s2_log)
+    s2_test = sum(TEST_VIEWS + s2_res["test"][k]["tracer_redos"] for k in S2_TEST_MARKS)
+    print(f"  tracer budgets at the end: {s2_tr.tracer_cfg.cluster_pair_capacity} cluster pairs, "
+          f"{s2_tr.tracer_cfg.pair_capacity} pairs, mesh_cull_cap {s2_tr.tracer_cfg.mesh_cull_cap}; "
+          f"renders redone {s2_redo}; test renders {s2_test}")
+    check([m["iteration"] for m in s2_log] == list(range(S2_START + 1, S2_END + 1)), "surfel2 run skipped iterations")
+    check(all(m["stage"] == "surfel2" for m in s2_log), "a step of the surfel2 run is not surfel2")
+    check(s2_launches["trace_bundles_bwd"] == n_s2,
+          f"tracer backward launched {s2_launches['trace_bundles_bwd']} times in {n_s2} steps")
+    check(s2_launches["trace_bundles_fwd"] == n_s2 + s2_redo + s2_test,
+          f"tracer forward launched {s2_launches['trace_bundles_fwd']} times for {n_s2} steps + {s2_redo} redone "
+          f"renders + {s2_test} test renders")
+    check(all(n > 0 for n in s2_launches.values()), "a kernel of the surfel2 path never launched")
+    check(all(m["overflow"] == 0 and m["tracer_overflow"] == 0 and m["mesh_cull_dropped"] == 0 for m in s2_log),
+          "a surfel2 step was applied truncated")
+    check(s2_log[-1]["env_n_alive"] > 0, "the env-GS cloud is empty at the end")
+    for name, prm in list(s2_tr.state.params().items()) + [("env." + k, v) for k, v in s2_tr.state.env_params().items()]:
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after the surfel2 run")
+    check(all(m["env_grad_xyz"] > 0 and m["env_grad_opacity"] > 0 and m["env_grad_sh"] > 0 for m in s2_log),
+          "an env-GS xyz, opacity or SH gradient was zero in a step")
+    check(all(math.isfinite(m["loss"]) for m in s2_log), "non-finite surfel2 loss")
+    for mark in S2_TEST_MARKS:
+        mt = s2_res["test"][mark]
+        print(f"  test psnr at {mark}: {mt['psnr']:.3f} dB over {len(mt['per_view_psnr'])} views "
+              f"(tracer renders redone {mt['tracer_redos']})")
+        check(math.isfinite(mt["psnr"]) and mt["tracer_overflow"] == 0, f"surfel2 test render at {mark} failed")
+    s2_dir = os.path.dirname(s2_res["ply"])
+    check(os.path.exists(os.path.join(s2_dir, "env_point_cloud.ply")), "no env_point_cloud.ply saved")
+    check(len(os.listdir(os.path.join(s2_run, "meshes"))) == len(s2_tr.mesh_log), "mesh PLYs missing")
+    ev2 = eval_torch.main(["-m", s2_run, "-s", train_scene, "--skip_train"])["test"]
+    print(f"  saved surfel2 checkpoint through scripts/eval_torch.py: psnr {ev2['psnr']:.3f} dB, ssim "
+          f"{ev2['ssim']:.5f}, {ev2['fps']:.2f} views/s, tracer overflow {ev2['tracer_overflow']}, "
+          f"renders redone {ev2['tracer_redos']}")
+    check(math.isfinite(ev2["psnr"]) and len(ev2["per_view_psnr"]) == TEST_VIEWS and ev2["tracer_overflow"] == 0,
+          "eval of the surfel2 checkpoint failed")
+    s2_wall = sorted(b["wall"] - a["wall"] for a, b in zip(s2_log, s2_log[1:]) if b["renders_redone"] == 0)
+    print(f"  host s/step during the run (median of the steps without a redo): {s2_wall[len(s2_wall) // 2]:.3f}")
+
+    # ----------------------------------------------------------------- 13 --
+    phase("13. learning check: 30 full-width surfel2 steps, densification, resets and re-extraction off")
+    _, s2pipe, s2opt = cfg.preset_refnerf()
+    s2opt = dataclasses.replace(cfg.scale_schedule(s2opt, 0.01), densify_from_iter=10**9,
+                                opacity_reset_interval=10**9, normal_prop_interval=10**9,
+                                env_densify_interval=10**9, env_reset_interval=10**9)
+    lmodel2, le1, le2 = gaussian_io.load_ply(os.path.join(start_dir, "point_cloud.ply"), capacity=1 << 19,
+                                             max_sh_degree=3, device=dev)
+    ltr2 = Trainer(lmodel2, tscene.train_cameras, [tscene.train_image(i) for i in range(TRAIN_VIEWS)], s2opt,
+                   s2pipe, cameras_extent=tscene.cameras_extent, bg_color=(1.0, 1.0, 1.0),
+                   raster_cfg=RasterizeConfig(pair_capacity=1 << 20), envmap_res=mp.envmap_max_res,
+                   masks=train_torch.load_masks(os.path.join(train_scene, "train"), tscene.info.train_cameras,
+                                                (TRAIN_H, TRAIN_W)),
+                   envmap_min_roughness=mp.envmap_min_roughness, envmap_max_roughness=mp.envmap_max_roughness,
+                   tracer_cfg=TracerConfig(pair_capacity=1 << 20, cluster_pair_capacity=1 << 13, mesh_cull_cap=512,
+                                           exact_order=True),
+                   mesh_every=10**9)
+    with torch.no_grad():
+        ltr2.state.env1.base.copy_(le1.base)
+        ltr2.state.env2.base.copy_(le2.base)
+    ltr2.state.step = S2_START
+    # The onset mesh is phase 12's (the same PLY, views and renders give the
+    # same TSDF): read and decimated as the Trainer does, not extracted again.
+    from materialrefgs_torch.train.mesh_extract import decimate_vertex_clustering, read_mesh_ply
+
+    mv, mf = read_mesh_ply(os.path.join(s2_run, "meshes", f"test_{S2_START + 1:06d}.ply"))
+    if len(mf) > Trainer.MESH_TRI_CAPACITY:
+        mv, mf = decimate_vertex_clustering(mv, mf, Trainer.MESH_TRI_CAPACITY)
+    ltr2.mesh = mtr.build_mesh(mv, mf, device=dev)
+    t0 = time.perf_counter()
+    ltr2.train(30, start_iter=S2_START + 1, log_every=1)
+    psnrs2 = [m["psnr"] for m in ltr2.metrics_log]
+    first5, last5 = float(np.mean(psnrs2[:5])), float(np.mean(psnrs2[-5:]))
+    print(f"  train PSNR: first 5 steps {first5:.3f} dB, last 5 steps {last5:.3f} dB (+{last5 - first5:.3f} dB) "
+          f"in {time.perf_counter() - t0:.1f} s; env_n_alive {ltr2.metrics_log[-1]['env_n_alive']}")
+    check(last5 >= first5 + 0.3, "surfel2 training did not raise the train PSNR by 0.3 dB")
+
+    # ----------------------------------------------------------------- 14 --
+    phase("14. tracer backward kernel at a training step's inputs; a surfel2 training step")
+    from materialrefgs_torch.ops.tracer import api as tapi_mod
+
+    step_cap = []
+    real_bwd = tapi_mod.trace_bundles_bwd
+
+    def capturing_bwd(payload, rays, seg_start, seg_count, seg_active, fwd_out, cot, **kw):
+        used = payload[:, : int(seg_start[-1]) + 128].clone()
+        step_cap.append(((used, rays.clone(), seg_start.clone(), seg_count.clone(), seg_active.clone(),
+                          fwd_out.clone(), cot.clone()), dict(kw)))
+        return real_bwd(payload, rays, seg_start, seg_count, seg_active, fwd_out, cot, **kw)
+
+    # One more Trainer step, under torch.profiler, whose tracer backward
+    # inputs are captured (the capture's copies of them are inside the
+    # profiled step).
+    it_next = S2_START + 31
+    tapi_mod.trace_bundles_bwd = capturing_bwd
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            prof_ms = 1e3 * time_steps(ltr2, "surfel2", it_next, 1)[0]
+    finally:
+        tapi_mod.trace_bundles_bwd = real_bwd
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    check(len(step_cap) == 1, f"one training step launched the tracer backward {len(step_cap)} times")
+    (full_args, skw), = step_cap
+    n_sh_s = skw["n_sh"]
+    for _ in range(3):
+        trace_bwd_fn(*full_args, **skw)
+    full_ms = cuda_ms(torch, lambda: trace_bwd_fn(*full_args, **skw), 10)
+    # The plain version takes minutes on a whole training step's trace, so
+    # the kernel, its plain version and the bound are held and timed on
+    # STEP_SUBSET of the step's bundles (short_walk_subset), each with its
+    # real pair list.
+    with_pairs = torch.nonzero(full_args[3] > 0).squeeze(1)
+    sargs = short_walk_subset(full_args, STEP_SUBSET)
+    dp, dr = trace_bwd_fn(*sargs, **skw)
+    torch.cuda.synchronize()
+    swork, sres = {}, {}
+    s_plain_ms = cuda_ms(torch, lambda: sres.update(ref=trace_bwd.trace_bundles_bwd_plain(*sargs, **skw, work=swork)), 1)
+    rp, rr = sres.pop("ref")
+    s_bwd_err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh_s,
+                                  f"training step {it_next} backward, {sargs[1].shape[0]} of its bundles (n_sh={n_sh_s}, "
+                                  f"{'exact' if skw['exact_order'] else 'list'} order)")
+    del dp, dr, rp, rr
+    for _ in range(3):
+        trace_bwd_fn(*sargs, **skw)
+    s_ms = cuda_ms(torch, lambda: trace_bwd_fn(*sargs, **skw), 10)
+    NBs = sargs[1].shape[0]
+    s_bytes = trace_bwd_bytes(n_sh_s, swork["hit_tests"] // 256, NBs)
+    s_flops = trace_bwd_flops(swork, n_sh_s, skw["exact_order"])
+    tb_, to_ = s_bytes / PEAK_BYTES_PER_S * 1e3, s_flops / PEAK_FP32_FLOPS * 1e3
+    s_bound, s_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
+    print(f"  tracer bwd kernel ms at the whole step's inputs: {full_ms:.4f} ({full_args[1].shape[0]} bundles, "
+          f"{with_pairs.numel()} with pairs, {int(full_args[3].sum())} pairs, {int(full_args[4].max()) // 128} "
+          f"chunks in the longest walk)")
+    print(f"  on {NBs} of its bundles ({int(sargs[3].sum())} pairs, {int(sargs[4].max()) // 128} chunks in the "
+          f"longest walk): kernel ms {s_ms:.4f}; plain version ms {s_plain_ms:.2f} (timed in its comparison run)")
+    print(f"  tracer bwd bound ms on those bundles: {s_bound:.4f} (by {s_by}: {s_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
+          f"{s_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {swork['hit_tests']} hit tests, {swork['hits']} hits, "
+          f"{swork['contribs']} composited, {swork['sort_compares']:.0f} sort compares); kernel at "
+          f"{100 * s_bound / s_ms:.1f} % of it")
+    print("  tracer bwd library call: none computes this function")
+    del step_cap, sargs, full_args
+
+    # Host time per step: the learning check's steps (the Trainer's log
+    # stamps each step's end), without its first.
+    walls2 = sorted(b["wall"] - a["wall"] for a, b in zip(ltr2.metrics_log[1:], ltr2.metrics_log[2:]))
+    ev_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev_) / 1e3
+    print(f"training step, surfel2, 800x800, {int(ltr2.state.model.n_alive)} splats + "
+          f"{int(ltr2.state.env_gs.n_alive)} env splats, tracer budgets ({ltr2.tracer_cfg.cluster_pair_capacity}, "
+          f"{ltr2.tracer_cfg.pair_capacity}): {walls2[len(walls2) // 2]:.4f} s/step (median of the learning "
+          f"check's steps 203-230, host clock; min {walls2[0]:.4f}, max {walls2[-1]:.4f}); profiled {prof_ms:.2f} "
+          f"ms for step {it_next} with {busy:.2f} ms of device kernels -> device busy {100 * busy / prof_ms:.1f} %; "
+          f"peak device memory {peak2:.2f} GiB")
+    print("  top device kernels (ms per step, launches per step):")
+    for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f}  {e.count:5d}  {e.key[:90]}")
+    with torch.no_grad():
+        mips2 = EnvLightMips.build(ltr2.state.env1, min_roughness=mp.envmap_min_roughness,
+                                   max_roughness=mp.envmap_max_roughness)
+        pkg = render_surfel(ltr2.state.model, ltr2.cameras[0], white, mips2, opts)
+        nmap = pkg["rend_normal"] / torch.clamp(pkg["rend_alpha"], min=1e-6)
+        mv_args = (ltr2.mesh, ltr2.cameras[0], nmap, pkg["surf_depth"], pkg["rend_alpha"])
+        mesh_visibility_map(*mv_args, cull_cap=ltr2.tracer_cfg.mesh_cull_cap)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mesh_visibility_map(*mv_args, cull_cap=ltr2.tracer_cfg.mesh_cull_cap)
+            torch.cuda.synchronize()
+    mesh_dev2 = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"mesh tracer in the surfel2 step (mesh_visibility_map, {int(ltr2.mesh.valid.sum())} triangles, train "
+          f"view 0): {mesh_dev2:.2f} ms of device kernels")
+
     record = {"kernels": [
         {
             "name": "rasterize_tiles_fwd",
@@ -1196,10 +1591,27 @@ def main() -> int:
             "bound_by": trace_times[TRACE_ROW]["by"],
             "library_ms": None,
         },
+        {
+            "name": "trace_bundles_bwd",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/trace_bwd.cu",
+            "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:586",
+            "launches": s2_launches["trace_bundles_bwd"],
+            "max_abs_err": max(tbwd_errs + [s_bwd_err]),
+            "ms": s_ms,
+            "plain_ms": s_plain_ms,
+            "bound_ms": s_bound,
+            "bound_by": s_by,
+            "library_ms": None,
+        },
     ]}
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
-          + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items()) + ")")
+          + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
+          + f"); surfel2 training path launches: {s2_launches}")
+    if bwd_ring:
+        print(f"tracer backward at ring view 0's env trace: {bwd_ring['ms']:.3f} ms, bound {bwd_ring['bound']:.4f} ms "
+              f"({bwd_ring['by']}), peak {bwd_ring['peak']:.2f} GiB")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -57,10 +57,14 @@ def train_state_from_numpy(
     opacity_lr_scale: float = 1.0,
     max_sh_degree: int = 3,
     device: str | torch.device | None = None,
+    env_gs: dict | None = None,
 ):
     """A JAX `TrainState` as the port's: `stats` holds xyz_gradient_accum,
     denom and max_radii2d; `adam_mu`/`adam_nu` map every parameter name of
-    the model plus "env1"/"env2" to the optax moments."""
+    the model plus "env1"/"env2" to the optax moments. `env_gs`, for a state
+    past the surfel2 onset, carries the JAX state's `env_gs` and
+    `env_gs_opt_state`: {"params", "alive", "active_sh_degree", "stats",
+    "adam_mu", "adam_nu", "adam_count"} with the model's names."""
     from materialrefgs_torch.train.trainer import TrainState
     from materialrefgs_torch.train.optim import Adam
 
@@ -82,4 +86,16 @@ def train_state_from_numpy(
         adam.nu[k].copy_(torch.as_tensor(np.array(adam_nu[k], np.float32)))
     adam.count = int(adam_count)
     state.adam = adam
+    if env_gs is not None:
+        state.env_gs = gaussian_model_from_numpy(env_gs["params"], env_gs["alive"],
+                                                 env_gs["active_sh_degree"], max_sh_degree, device)
+        with torch.no_grad():
+            for name in ("xyz_gradient_accum", "denom", "max_radii2d"):
+                getattr(state.env_gs, name).copy_(torch.as_tensor(np.array(env_gs["stats"][name], np.float32)))
+        env_adam = Adam({k: v.detach() for k, v in state.env_params().items()})
+        for k in env_adam.names:
+            env_adam.mu[k].copy_(torch.as_tensor(np.array(env_gs["adam_mu"][k], np.float32)))
+            env_adam.nu[k].copy_(torch.as_tensor(np.array(env_gs["adam_nu"][k], np.float32)))
+        env_adam.count = int(env_gs["adam_count"])
+        state.env_adam = env_adam
     return state

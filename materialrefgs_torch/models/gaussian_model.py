@@ -282,6 +282,30 @@ def add_densification_stats(
 
 
 @torch.no_grad()
+def env_gs_from(model: GaussianModel) -> GaussianModel:
+    """The environment gaussians at the surfel2 onset (the JAX Trainer's
+    _init_env_gs, trainer.py:725-738; restore_from_refgs,
+    env_gaussian_model3.py:553-589): a deep copy of the main model sharing
+    its geometry and SH, with zeroed densification statistics."""
+    env = GaussianModel(model.capacity, model.max_sh_degree, model.device)
+    env.load_state_dict(model.state_dict())
+    env.xyz_gradient_accum.zero_()
+    env.denom.zero_()
+    env.max_radii2d.zero_()
+    return env
+
+
+@torch.no_grad()
+def add_env_stats(env: GaussianModel, xyz_grad: torch.Tensor) -> None:
+    """The env model's densification statistics from its xyz gradient
+    (trainer.py:473-477 of the JAX package): accum += |grad|, denom +=
+    (|grad| > 0)."""
+    gnorm = torch.linalg.vector_norm(xyz_grad, dim=-1)
+    env.xyz_gradient_accum.add_(gnorm)
+    env.denom.add_((gnorm > 0).to(torch.float32))
+
+
+@torch.no_grad()
 def densify_and_prune(
     model: GaussianModel,
     adam,

@@ -28,8 +28,11 @@ TRI_CHUNK = 512
 RAY_BLOCK = 2048
 T_FAR = 10.0  # reference miss sentinel (raytracer.py:220 hit_depth == 10)
 CLUSTER = 64  # triangles per Morton cluster (pre-cull granularity)
-# Bytes of (ray, triangle) intermediates one batch of blocks may hold.
-BATCH_BYTES = 1 << 30
+# Bytes of (ray, triangle) intermediates one batch of blocks may hold. At the
+# training CLI's mesh_cull_cap of 512 clusters a block's worst case is 400 MB,
+# so this admits 21 blocks per batch (1 GB admitted 2, and dispatching ~45
+# small ops per batch then held the host for seconds per 800x800 view).
+BATCH_BYTES = 1 << 33
 
 
 @dataclass

@@ -7,9 +7,11 @@ cluster) pairs, stage 2 runs the exact per-gaussian cone test, and the
 surviving pairs, sorted by depth along each bundle's axis in 128-aligned
 segments, go through the forward kernel (`trace_fwd.trace_bundles_fwd`).
 
-Forward only: serving takes no gradient. `trace` raises NotImplementedError
-when autograd would need one; the autograd Function over the backward kernel
-(`trace_bundles_bwd`) comes with the surfel2 training slice of the port.
+Gradients flow through `_TraceCore`, an autograd Function over the payload
+gather and both kernels (the JAX package's `_trace_core` custom VJP): its
+backward launches `trace_bwd.trace_bundles_bwd` and scatter-adds the payload
+gradient into the per-gaussian table. The cull and the segment layout take no
+gradient (their outputs are indices and masks).
 """
 from __future__ import annotations
 
@@ -24,10 +26,13 @@ from materialrefgs_torch.ops.tracer.layout import (
     NRAY,
     OUT_DEPTH,
     OUT_FINAL_T,
+    OUT_NCONTRIB,
     OUT_NORMAL,
+    OUT_NPROC,
     OUT_RGB,
     pay_rows,
 )
+from materialrefgs_torch.ops.tracer.trace_bwd import trace_bundles_bwd
 from materialrefgs_torch.ops.tracer.trace_fwd import trace_bundles_fwd
 from materialrefgs_torch.utils.transforms import normalize, quat_to_rotmat
 
@@ -45,6 +50,53 @@ class TracerConfig:
     # Each ray composites in its own hit-t order within every 128-pair chunk
     # (chunks stay in the bundle's depth order); False: list order.
     exact_order: bool = False
+
+
+class _TraceCore(torch.autograd.Function):
+    """The payload gather and the tracer kernels (api.py:122-160 of the JAX
+    package). Forward: gather the (rows, P) per-gaussian table's columns of
+    the binned pairs straight into the one (pay_rows, B + 128) payload buffer
+    (invalid pairs zero), then `trace_bundles_fwd`. Backward: the walk bound
+    `seg_active` as `_trace_core_bwd` computes it, `trace_bundles_bwd`, and
+    the valid pairs' payload gradients `index_add_`ed into a (rows, P)
+    table. Both gather and scatter only the columns the segments span
+    (seg_start[-1]): every valid pair lies there, and a budget raised for
+    the largest view leaves most of the B columns unused on the others."""
+
+    @staticmethod
+    def forward(ctx, table, rays8, pair_gauss, pair_valid, seg_start, seg_count, n_sh, tmin, exact_order):
+        nrow, B = table.shape[0], pair_gauss.shape[0]
+        used = int(seg_start[-1])
+        payload = torch.empty((pay_rows(n_sh), B + K_CHUNK), dtype=torch.float32, device=table.device)
+        payload[nrow:].zero_()
+        payload[:nrow, used:].zero_()
+        torch.index_select(table, 1, pair_gauss[:used], out=payload[:nrow, :used])
+        payload[:nrow, :used].masked_fill_(~pair_valid[:used], 0.0)
+        out = trace_bundles_fwd(payload, rays8, seg_start, seg_count, n_sh=n_sh, tmin=tmin,
+                                exact_order=exact_order)
+        ctx.save_for_backward(payload, rays8, seg_start, seg_count, out, pair_gauss[:used], pair_valid[:used])
+        ctx.cfg = (n_sh, tmin, exact_order, nrow, table.shape[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        payload, rays8, seg_start, seg_count, out, pair_gauss, pair_valid = ctx.saved_tensors
+        n_sh, tmin, exact_order, nrow, P = ctx.cfg
+        if exact_order:
+            # The exact-order backward rebuilds each ray's prefixes from SUMLG,
+            # which spans every chunk the forward processed: walk all of them.
+            seg_active = torch.amax(out[..., OUT_NPROC], dim=1).to(torch.int32) * K_CHUNK
+        else:
+            seg_active = torch.amax(out[..., OUT_NCONTRIB], dim=1).to(torch.int32)
+        dpay, drays = trace_bundles_bwd(payload, rays8, seg_start, seg_count, seg_active, out,
+                                        g.contiguous(), n_sh=n_sh, tmin=tmin, exact_order=exact_order)
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            src = dpay[:nrow, : pair_gauss.shape[0]]  # the columns the segments span
+            src.masked_fill_(~pair_valid, 0.0)
+            dtable = torch.zeros((nrow, P), dtype=torch.float32, device=dpay.device)
+            dtable.index_add_(1, pair_gauss, src)
+        return dtable, drays, None, None, None, None, None, None, None
 
 
 def _cluster_gaussians(means3d, scales, alive):
@@ -196,13 +248,6 @@ def trace(
     `bundle_mask=False` bundles produce zero output (final_T = 1): their
     (bundle, cluster) pairs are culled in stage 1, so they bin no pairs and
     the kernel's loop for them exits at once."""
-    inputs = (rays_o, rays_d, means3d, scales, rotations, opacities, shs)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        raise NotImplementedError(
-            "tracer gradients (the trace_bundles_bwd kernel and its autograd "
-            "Function) come with the surfel2 training slice of the port; trace "
-            "under torch.no_grad() or with detached inputs"
-        )
     N = rays_o.shape[0]
     if N % NRAY:
         raise ValueError(f"ray count {N} is not a multiple of {NRAY}")
@@ -214,38 +259,33 @@ def trace(
 
     ro = rays_o.reshape(NB, NRAY, 3)
     rd = rays_d.reshape(NB, NRAY, 3)
-    gauss, b_of, t_proj, okg, cluster_overflow = _cull(
-        ro, rd, means3d, scales, opacities, config, bundle_mask
-    )
     B = config.pair_capacity
-    okg_f = okg.reshape(-1)
-    seg = build_aligned_segments(b_of.reshape(-1), t_proj.reshape(-1), okg_f, NB, B)
-    gauss_f = gauss.reshape(-1)
-    pair_gauss = scatter_pairs(torch.where(okg_f, gauss_f, torch.zeros_like(gauss_f)), seg.perm_pos, B)
-    pair_valid = scatter_pairs(okg_f, seg.perm_pos, B, fill=False)
+    with torch.no_grad():
+        gauss, b_of, t_proj, okg, cluster_overflow = _cull(
+            ro.detach(), rd.detach(), means3d.detach(), scales.detach(), opacities.detach(), config,
+            bundle_mask,
+        )
+        okg_f = okg.reshape(-1)
+        seg = build_aligned_segments(b_of.reshape(-1), t_proj.reshape(-1), okg_f, NB, B)
+        gauss_f = gauss.reshape(-1)
+        pair_gauss = scatter_pairs(torch.where(okg_f, gauss_f, torch.zeros_like(gauss_f)), seg.perm_pos, B)
+        pair_valid = scatter_pairs(okg_f, seg.perm_pos, B, fill=False)
 
     # Per-pair payload (pay_rows(n_sh), B + 128): geometry rows + raw SH rows
-    # (channel-major), gathered in one (B, 13 + 3*n_sh) gather from a
-    # per-gaussian table; color is evaluated per ray inside the kernel.
+    # (channel-major), gathered in one gather from a (13 + 3*n_sh, P)
+    # per-gaussian table; color is evaluated per ray inside the kernel. The
+    # gather writes straight into the channel-major payload, the only (rows,
+    # B) buffer alive: at tens of millions of pairs a second one would not
+    # fit beside it (_TraceCore).
     R = quat_to_rotmat(rotations)
     tu_s = R[:, :, 0] / torch.clamp(scales[:, 0:1], min=1e-12)
     tv_s = R[:, :, 1] / torch.clamp(scales[:, 1:2], min=1e-12)
     sh_flat = shs[:, :n_sh, :].transpose(1, 2).reshape(P, 3 * n_sh)
     g_all = torch.cat([means3d, tu_s, tv_s, R[:, :, 2], opacities[:, None], sh_flat], dim=1)
-    # The gather writes straight into the channel-major payload, which is the
-    # only (rows, B) buffer alive: at tens of millions of pairs a second one
-    # would not fit beside it.
-    nrow = g_all.shape[1]
-    payload = torch.empty((pay_rows(n_sh), B + K_CHUNK), dtype=torch.float32, device=means3d.device)
-    payload[nrow:].zero_()
-    payload[:nrow, B:].zero_()
-    torch.index_select(g_all.T.contiguous(), 1, pair_gauss.long(), out=payload[:nrow, :B])
-    payload[:nrow, :B].masked_fill_(~pair_valid, 0.0)
-
     rays8 = torch.cat([ro, rd, torch.zeros((NB, NRAY, 2), dtype=ro.dtype, device=ro.device)], dim=-1)
-    out = trace_bundles_fwd(
-        payload, rays8.contiguous(), seg.seg_start, seg.seg_count,
-        n_sh=n_sh, tmin=config.tmin, exact_order=config.exact_order,
+    out = _TraceCore.apply(
+        g_all.T.contiguous(), rays8.contiguous(), pair_gauss.long(), pair_valid, seg.seg_start,
+        seg.seg_count, n_sh, config.tmin, config.exact_order,
     )
     final_T = out[..., OUT_FINAL_T].reshape(N)
     # Budgets that would have kept every pair of this trace: the stage-1

@@ -177,14 +177,27 @@ def trace_bundles_fwd_plain(
     _check_inputs(payload, rays, seg_start, seg_count, n_sh)
     NB = rays.shape[0]
     out = torch.zeros((NB, NRAY, C_OUT), dtype=torch.float32, device=payload.device)
-    if work is not None:
-        work.update(hit_tests=0, hits=0, contribs=0, sort_compares=0.0)
+    # The counts accumulate on the tensors' device and are read once at the
+    # end, so counting adds no host synchronization per chunk.
+    counts = None if work is None else _work_counters(payload.device)
     for b0 in range(0, NB, BUNDLE_BLOCK):
         b1 = min(NB, b0 + BUNDLE_BLOCK)
         out[b0:b1] = _plain_bundles(
-            payload, rays[b0:b1], seg_start[b0:b1], seg_count[b0:b1], n_sh, tmin, exact_order, work
+            payload, rays[b0:b1], seg_start[b0:b1], seg_count[b0:b1], n_sh, tmin, exact_order, counts
         )
+    if work is not None:
+        work.update(_read_work(counts))
     return out
+
+
+def _work_counters(device) -> dict:
+    z = lambda dt: torch.zeros((), dtype=dt, device=device)  # noqa: E731
+    return dict(hit_tests=z(torch.int64), hits=z(torch.int64), contribs=z(torch.int64),
+                sort_compares=z(torch.float64))
+
+
+def _read_work(counts: dict) -> dict:
+    return {k: (float(v) if v.is_floating_point() else int(v)) for k, v in counts.items()}
 
 
 def _geometry(pay, o, d, tmin):
@@ -252,10 +265,10 @@ def _plain_bundles(payload, rays, seg_start, seg_count, n_sh, tmin, exact_order,
         lane_ok = (off[:, None] + lane[None, :]) < (start[idx] + count[idx])[:, None]
         ok = ok & lane_ok[:, None, :]  # (na, 256, K)
         if work is not None:
-            work["hit_tests"] += int(lane_ok.sum()) * NRAY
+            work["hit_tests"] += lane_ok.sum() * NRAY
             hits = ok.sum(-1).to(torch.float32)  # (na, 256) hits per ray in this chunk
-            work["hits"] += int(hits.sum())
-            work["sort_compares"] += float((hits * torch.log2(torch.clamp(hits, min=1.0))).sum())
+            work["hits"] += hits.sum().to(torch.int64)
+            work["sort_compares"] += (hits * torch.log2(torch.clamp(hits, min=1.0))).sum().to(torch.float64)
         a = torch.where(ok, alpha, zero)
         lg = torch.log1p(-a)
         flip = torch.where(denom > 0, -1.0, 1.0)
@@ -298,7 +311,7 @@ def _plain_bundles(payload, rays, seg_start, seg_count, n_sh, tmin, exact_order,
             if work is not None:
                 n_inc += inc.sum()
         if work is not None:
-            work["contribs"] += int(n_inc)
+            work["contribs"] += n_inc
         logT[idx], rgb[idx], dep[idx], nrm[idx] = p, c_rgb, c_dep, c_nrm
         final_logT[idx], n_contrib[idx] = c_fin, c_nc
         nproc[idx] += 1.0

@@ -12,8 +12,9 @@ only on bundles with an occluded pixel; without one, the main cloud traced
 with the same bundle tracer, vis = 1 - acc (the JAX package's documented
 substitute).
 
-Forward only (serving): the tracer raises NotImplementedError under
-autograd; `tracer_demand_probe` comes with the surfel2 training slice.
+The env trace's rays keep their gradient (to the normal map and the
+surface depth, as in the JAX package); the visibility trace takes none.
+`tracer_demand_probe` sizes the tracer's budget at the surfel2 onset.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.models.env_light import EnvLightMips
 from materialrefgs_torch.models.gaussian_model import GaussianModel
 from materialrefgs_torch.ops.rasterize.api import rasterize
-from materialrefgs_torch.ops.tracer.api import TracerConfig, trace
+from materialrefgs_torch.ops.tracer.api import TracerConfig, trace, trace_demand
 from materialrefgs_torch.render import shading
 from materialrefgs_torch.render.renderers import (
     RenderOptions,
@@ -131,11 +132,31 @@ def trace_visibility(
     return bundles_to_image(vis, H, W), {k: out[k] for k in _TRACE_COUNTS}
 
 
-def tracer_demand_probe(*args, **kwargs):
-    raise NotImplementedError(
-        "tracer_demand_probe sizes the tracer's pair budget for training; it "
-        "comes with the surfel2 training slice of the port"
-    )
+@torch.no_grad()
+def tracer_demand_probe(
+    env_model: GaussianModel,
+    camera: Camera,
+    normal_map: torch.Tensor,  # (H, W, 3) alpha-divided
+    surf_depth: torch.Tensor,  # (H, W) or (H, W, 1)
+    render_alpha: torch.Tensor,  # (H, W, 1)
+    tracer_cfg: TracerConfig,
+    mesh=None,
+) -> int:
+    """Pair demand of the indirect trace render_surfel2 would issue from this
+    view (envgs.py:161-203 of the JAX package): the cull stages only, no
+    binning, kernel or gradient. With a mesh, only the bundles it occludes."""
+    H, W = camera.height, camera.width
+    if surf_depth.dim() == 3:
+        surf_depth = surf_depth[..., 0]
+    mask = bundle_alpha_mask(render_alpha, H, W)
+    if mesh is not None:
+        vis = mesh_visibility_map(mesh, camera, normal_map, surf_depth, render_alpha,
+                                  cull_cap=tracer_cfg.mesh_cull_cap)
+        vb = rays_to_bundles(vis, H, W)
+        mask = mask & (torch.amin(vb.reshape(-1, TILE * TILE), dim=1) < 0.5)
+    ro, rd = _reflected_rays(camera, normal_map, surf_depth, 1e-3)
+    return trace_demand(ro, rd, env_model.xyz, env_model.get_scaling, env_model.get_opacity[:, 0],
+                        tracer_cfg, bundle_mask=mask)
 
 
 def render_surfel2(

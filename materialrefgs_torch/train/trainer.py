@@ -1,23 +1,28 @@
-"""Training loop for the refnerf curriculum's `initial` and `surfel` stages
-(the JAX package's train/trainer.py, reference train_refnerf.py:1012-1533).
+"""Training loop for the refnerf curriculum's `initial`, `surfel` and
+`surfel2` stages (the JAX package's train/trainer.py, reference
+train_refnerf.py:1012-1533).
 
 `make_train_step(stage, ...)` returns one optimization step of that stage
 (a `TrainStep`, whose render and update halves can be called apart):
-render through the rasterizer (both tile kernels), the loss terms that are
-live before `surfel2` (calculate_loss with the image-gradient weight, the
-normal-consistency ladder, mask entropy when masks exist, the env-scope
-penalty when configured), one backward, the Adam update with the per-group
-learning rates, and the densification statistics from the screen-offset
-gradient. `Trainer` runs the JAX Trainer's schedule of SH oneups, pair-capacity
-escalation on binning overflow, densify/prune with prune grace, the
-white-background kick, opacity resets, and the normal-propagation resets
-with the opacity-LR toggle.
+render through the rasterizer (both tile kernels) and, in `surfel2`, the
+env-GS trace (both tracer kernels) with mesh-traced visibility, the loss terms
+(calculate_loss with the image-gradient weight, the normal-consistency
+ladder, mask entropy when masks exist, the env-scope penalty when
+configured), one backward, the Adam update with the per-group learning rates,
+the densification statistics from the screen-offset gradient, and in
+`surfel2` the env-GS model's own Adam update and statistics. `Trainer` runs
+the JAX Trainer's schedule of SH oneups, pair-capacity escalation on binning
+overflow, densify/prune with prune grace, the white-background kick, opacity
+resets, the normal-propagation resets with the opacity-LR toggle, and from the
+surfel2 onset the env-GS init, TSDF mesh extraction, the tracer-budget probe,
+env densify/prune/reset with the signal-counted grace, the env SH ladder and
+the extinction re-seed.
 
 The port runs eagerly, so a step mutates the state in place where the JAX
 step returns a new one. What the later slices bring raises
-NotImplementedError naming the slice: the `volume` and `surfel2` stages, the
-multi-view warp loss, mono-normal priors, ref-score masks and the LPIPS loss
-(the env-GS model belongs to `surfel2`).
+NotImplementedError naming the slice: the `volume` stage, the multi-view warp
+loss (at the first iteration whose warp gate opens), mono-normal priors,
+ref-score masks, the LPIPS loss and the `raytracing_residual` indirect type.
 """
 from __future__ import annotations
 
@@ -30,23 +35,26 @@ import torch
 
 from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.config import OptimizationParams, PipelineParams
+from materialrefgs_torch.evaluate import fit_tracer_budgets
 from materialrefgs_torch.models import gaussian_model as gm
 from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams
 from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+from materialrefgs_torch.ops.tracer.api import TracerConfig
+from materialrefgs_torch.render.envgs import render_surfel2, tracer_demand_probe
 from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel
 from materialrefgs_torch.train import losses
 from materialrefgs_torch.train.optim import Adam
 from materialrefgs_torch.train.stages import select_stage
 from materialrefgs_torch.utils.transforms import expon_lr
 
-STAGES = ("initial", "surfel")
+STAGES = ("initial", "surfel", "surfel2")
 
 
 def _later_slice(what: str) -> NotImplementedError:
     where = {
         "volume": "the multi-view/volume slice",
-        "surfel2": "the surfel2 training slice",
         "warp": "the multi-view/volume slice",
+        "raytracing_residual": "the mesh-shading slice",
         "mono-normal": "the multi-view/volume slice",
         "ref-score": "the multi-view/volume slice",
         "LPIPS": "the multi-view/volume slice",
@@ -62,6 +70,8 @@ class TrainState:
     adam: Adam
     step: int = 0  # optimizer steps taken (the xyz LR schedule's clock)
     opacity_lr_scale: float = 1.0  # set_opacity_lr toggle, 0 or 1
+    env_gs: gm.GaussianModel | None = None  # environment gaussians (surfel2)
+    env_adam: Adam | None = None  # their own Adam, counted from the onset
 
     def params(self) -> dict[str, torch.Tensor]:
         """Every optimized tensor by name: the model's raw parameters, then
@@ -70,6 +80,15 @@ class TrainState:
         out["env1"] = self.env1.base
         out["env2"] = self.env2.base
         return out
+
+    def env_params(self) -> dict[str, torch.Tensor]:
+        """The env-GS model's raw parameters by name."""
+        return {name: getattr(self.env_gs, name) for name in gm.PARAM_SHAPES}
+
+    def init_env_gs(self) -> None:
+        """Env-GS from the main model with a fresh Adam (_init_env_gs)."""
+        self.env_gs = gm.env_gs_from(self.model)
+        self.env_adam = Adam({k: v.detach() for k, v in self.env_params().items()})
 
 
 def init_train_state(model: gm.GaussianModel, envmap_res: int = 128) -> TrainState:
@@ -123,16 +142,18 @@ def normal_loss_weight_schedule(iteration: int, opt: OptimizationParams) -> floa
 
 
 class TrainStep:
-    """One optimization step of `initial` or `surfel`, in two halves so that
-    the caller can look at the render before anything is updated:
-    `render(state, camera, extra)` draws the view (with the screen-offset
-    leaf of the densification statistics) and `update(state, camera, gt,
-    extra, rendered)` takes the loss, its backward and the Adam update and
-    returns the metrics. Calling the step does both. The step updates
-    `state` in place.
+    """One optimization step of `initial`, `surfel` or `surfel2`, in two
+    halves so that the caller can look at the render before anything is
+    updated: `render(state, camera, extra, mesh)` draws the view (with the
+    screen-offset leaf of the densification statistics; `surfel2` traces the
+    env-GS model with the mesh's visibility, or the splat visibility without
+    one) and `update(state, camera, gt, extra, rendered)` takes the loss, its
+    backward and the Adam updates and returns the metrics. Calling the step
+    does both. The step updates `state` in place.
 
-    extra: {"iteration", "lambda_normal_render_depth", "bg"} and, when the
-    scene has foreground masks, "image_mask" (H, W)."""
+    extra: {"iteration", "lambda_normal_render_depth", "bg"}, in `surfel2`
+    "env_geo_lr_scale" (0 past env_update_until_iter: freeze_geo), and, when
+    the scene has foreground masks, "image_mask" (H, W)."""
 
     def __init__(
         self,
@@ -144,15 +165,19 @@ class TrainStep:
         envmap_n_samples: int = 32,
         env_min_roughness: float = 0.08,
         env_max_roughness: float = 0.5,
+        tracer_cfg: TracerConfig = TracerConfig(),
     ):
         if stage not in STAGES:
-            raise _later_slice("surfel2" if stage == "surfel2" else "volume")
+            raise _later_slice("volume")
         if pipe.use_asg:
             raise NotImplementedError(
                 "ASG indirect light (use_asg, utils/asg.py) is not ported yet; "
                 "refnerf has it off"
             )
+        if stage == "surfel2" and pipe.indirect_type != "origin":
+            raise _later_slice("raytracing_residual")
         self.stage = stage
+        self.tracer_cfg = tracer_cfg
         self.opt = opt
         self.spatial_lr_scale = spatial_lr_scale
         self.envmap_n_samples = envmap_n_samples
@@ -167,10 +192,11 @@ class TrainStep:
         )
         self.lopt = dataclasses.replace(opt, lambda_normal_render_depth=0.0)  # applied in update
 
-    def __call__(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict) -> dict:
-        return self.update(state, camera, gt, extra, self.render(state, camera, extra))
+    def __call__(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict,
+                 mesh=None) -> dict:
+        return self.update(state, camera, gt, extra, self.render(state, camera, extra, mesh))
 
-    def render(self, state: TrainState, camera: Camera, extra: dict) -> tuple[dict, torch.Tensor]:
+    def render(self, state: TrainState, camera: Camera, extra: dict, mesh=None) -> tuple[dict, torch.Tensor]:
         """(the render package, the screen-offset leaf it was drawn with)."""
         model = state.model
         offset = torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
@@ -182,6 +208,12 @@ class TrainStep:
             state.env1, n_samples=self.envmap_n_samples,
             min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
         )
+        if self.stage == "surfel2":
+            if state.env_gs is None:
+                raise ValueError("the surfel2 step needs the env-GS model (TrainState.init_env_gs)")
+            pkg = render_surfel2(model, state.env_gs, camera, extra["bg"], mips, self.ropts,
+                                 self.tracer_cfg, offset, mesh=mesh)
+            return pkg, offset
         return render_surfel(model, camera, extra["bg"], mips, self.ropts, offset), offset
 
     def update(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict,
@@ -204,7 +236,7 @@ class TrainStep:
         loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
         tb["loss_normal_render_depth"] = ln
 
-        if opt.use_env_scope and self.stage == "surfel":
+        if opt.use_env_scope and self.stage in ("surfel", "surfel2"):
             # Penalize refl_strength outside the scene sphere
             # (train_refnerf.py:1022-1027, 1335-1338; weight 0.4).
             center = torch.tensor(opt.env_scope_center, dtype=torch.float32, device=model.device)
@@ -214,7 +246,7 @@ class TrainStep:
             loss = loss + 0.4 * refl_msk_loss
             tb["loss_refl_msk"] = refl_msk_loss
 
-        if self.stage == "surfel" and "image_mask" in extra:
+        if self.stage in ("surfel", "surfel2") and "image_mask" in extra:
             # Mask entropy after the volume stage (train_refnerf.py:1211-1220).
             o = torch.clamp(pkg["rend_alpha"][..., 0], 1e-6, 1 - 1e-6)
             msk = extra["image_mask"]
@@ -222,12 +254,18 @@ class TrainStep:
             loss = loss + 0.01 * ent
             tb["loss_mask_entropy"] = ent
 
+        # One backward over the main model, both cubemaps, in surfel2 the
+        # env-GS model, and the screen offset.
         params = state.params()
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names] + [offset], allow_unused=True)
+        leaves = [params[k] for k in names]
+        env_params = state.env_params() if self.stage == "surfel2" else {}
+        env_names = list(env_params)
+        leaves += [env_params[k] for k in env_names]
+        grads = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
         goff = grads[-1] if grads[-1] is not None else torch.zeros_like(offset)
         lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
-        state.adam.step(params, dict(zip(names, grads[:-1])), lrs)
+        state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
         gm.add_densification_stats(
             model, goff, pkg["radii"].detach(),
             ndc_scale=(0.5 * camera.width, 0.5 * camera.height),
@@ -237,6 +275,28 @@ class TrainStep:
         metrics = {k: v.detach() for k, v in tb.items()}
         metrics["loss"] = loss.detach()
         metrics["overflow"] = pkg["overflow"]
+        if self.stage == "surfel2":
+            # The env-GS model's own Adam. Its learning rates read the step
+            # after the increment (trainer.py:461), without the opacity-LR
+            # toggle; freeze_geo scales xyz and scaling, not rotation
+            # (trainer.py:465-468).
+            egrads = dict(zip(env_names, grads[len(names) : len(names) + len(env_names)]))
+            elrs = param_lrs(opt, self.spatial_lr_scale, state.step)
+            fz = float(extra.get("env_geo_lr_scale", 1.0))
+            elrs["xyz"] *= fz
+            elrs["scaling"] *= fz
+            state.env_adam.step(env_params, egrads, elrs)
+            gx = egrads["xyz"] if egrads["xyz"] is not None else torch.zeros_like(env_params["xyz"])
+            gm.add_env_stats(state.env_gs, gx)
+            metrics["tracer_overflow"] = int(pkg["tracer_overflow"])
+            metrics["tracer_pairs"] = int(pkg["tracer_pairs"])
+            metrics["mesh_cull_dropped"] = int(pkg["mesh_cull_dropped"])
+            # The largest env-GS gradients this step (zero: the trace gave
+            # the env cloud no learning signal).
+            for name, keys in (("xyz", ("xyz",)), ("opacity", ("opacity",)),
+                               ("sh", ("features_dc", "features_rest"))):
+                metrics[f"env_grad_{name}"] = max(
+                    float(egrads[k].abs().max()) if egrads[k] is not None else 0.0 for k in keys)
         return metrics
 
 
@@ -249,29 +309,45 @@ def make_train_step(
     envmap_n_samples: int = 32,
     env_min_roughness: float = 0.08,
     env_max_roughness: float = 0.5,
+    tracer_cfg: TracerConfig = TracerConfig(),
 ) -> TrainStep:
-    """The step of `initial` or `surfel`: step(state, camera, gt, extra) ->
-    metrics (see TrainStep)."""
+    """The step of `initial`, `surfel` or `surfel2`: step(state, camera, gt,
+    extra, mesh=None) -> metrics (see TrainStep)."""
     return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
-                     env_min_roughness, env_max_roughness)
+                     env_min_roughness, env_max_roughness, tracer_cfg)
 
 
 class Trainer:
-    """Python orchestration of the curriculum (train_refnerf.py:1093-1495),
-    for the stages before `surfel2`.
+    """Python orchestration of the curriculum (train_refnerf.py:1093-1495).
 
-    Binning overflow: the JAX Trainer polls the overflow every 10 iterations
-    (reading it syncs its asynchronous dispatch) and escalates the pair
-    capacity, so up to 10 truncated steps are applied. The port's eager step
+    Budget overflows: the JAX Trainer polls the rasterizer's and the
+    tracer's overflow and the mesh pre-cull's drops every 10 iterations
+    (reading them syncs its asynchronous dispatch) and escalates the
+    budgets, so up to 10 truncated steps are applied. The port's eager step
     synchronizes with the host anyway, so the Trainer reads every render's
-    overflow between the step's render and update halves, and a render that
-    dropped pairs is redone at the escalated capacity: no truncated step is applied unless the capacity is at its
-    ceiling, where the step is applied truncated with a warning, as in the
-    JAX package. The ceiling is 4x the JAX package's 1<<23 pair slots: a
-    compressed curriculum's opacity and scale resets can ask for over 10M
-    pairs at 800x800, and the card's memory holds that."""
+    counts between the step's render and update halves and redoes a render
+    that dropped anything: at the escalated pair capacity (binning), at
+    budgets that fit (the tracer: evaluate.fit_tracer_budgets), or at a
+    doubled mesh_cull_cap. No truncated step is applied unless a budget is at
+    its ceiling, where the step is applied truncated with a warning, as in the
+    JAX package. The rasterizer's ceiling is 4x the JAX package's 1<<23 pair
+    slots (a compressed curriculum's resets ask for over 10M pairs at
+    800x800). The tracer's is 1<<26 pairs, 16x the JAX package's 1<<22: a
+    traced pair costs its payload column and the column's gradient, 2 x 64
+    rows x 4 B at n_sh = 16, and an int64 gather index (520 B in all), so
+    1<<26 pairs take 35 GB of the card's 80 GB beside the rest of a step. The
+    env-GS prune grace counts the steps with traced pairs one by one, where
+    the JAX Trainer adds 10 per poll."""
 
     MAX_PAIR_CAPACITY = 1 << 25
+    MAX_TRACER_PAIR_CAPACITY = 1 << 26
+    MAX_TRACER_CLUSTER_PAIRS = 1 << 20  # the cull's (cluster pair, 256) candidates: ~16 GB
+    MAX_MESH_CULL_CAP = 1 << 11  # 2048 clusters = 131k triangles per block
+    # TSDF grid over the observed content's bounds (~ the reference's
+    # mesh_res 1024 over the camera ring, trainer.py:544-546), and the traced
+    # copy's triangle budget (the full mesh is the meshes/*.ply artifact).
+    MESH_RESOLUTION = 256
+    MESH_TRI_CAPACITY = 1 << 16
 
     def __init__(
         self,
@@ -291,6 +367,10 @@ class Trainer:
         with_warp: bool = False,
         envmap_min_roughness: float = 0.08,
         envmap_max_roughness: float = 0.5,
+        tracer_cfg: TracerConfig = TracerConfig(),
+        mesh_dir: str | None = None,  # periodic TSDF mesh artifacts
+        mesh_every: int = 2000,
+        use_mesh_visibility: bool = True,  # mesh-traced specular occlusion
     ):
         if opt.use_perceptual_loss:
             raise _later_slice("LPIPS")
@@ -298,8 +378,6 @@ class Trainer:
             raise _later_slice("mono-normal")
         if ref_score_masks is not None:
             raise _later_slice("ref-score")
-        if with_warp:
-            raise _later_slice("warp")
         self.opt = opt
         self.pipe = pipe
         self.cameras = cameras
@@ -308,10 +386,15 @@ class Trainer:
         self.masks = (
             [torch.as_tensor(np.asarray(m, np.float32), device=dev) for m in masks] if masks else None
         )
+        # The port has no warp loss yet: a run that asks for it (as the JAX
+        # CLI does whenever multi_view_ncc_weight > 0) stops where the warp
+        # gate opens instead of training on without it.
+        self.with_warp = with_warp
         self.cameras_extent = cameras_extent
         self.spatial_lr_scale = cameras_extent
         self.bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
         self.raster_cfg = raster_cfg
+        self.tracer_cfg = tracer_cfg
         self.envmap_min_roughness = envmap_min_roughness
         self.envmap_max_roughness = envmap_max_roughness
         self.state = init_train_state(model, envmap_res)
@@ -319,6 +402,17 @@ class Trainer:
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._steps: dict = {}
         self._reset0_at: int | None = None
+        self._env_reset_at: int | None = None
+        # Steps with traced env pairs since the last env reset (the
+        # signal-counted prune grace).
+        self._env_signal_steps = 0
+        self._tracer_presized = False
+        self.mesh_dir = mesh_dir
+        self.mesh_every = mesh_every
+        self.use_mesh_visibility = use_mesh_visibility
+        self.mesh = None  # ops.mesh_tracer.MeshData for the traced visibility
+        # (iteration, triangles, seconds) of each mesh extraction.
+        self.mesh_log: list[tuple[int, int, float]] = []
         self.metrics_log: list[dict] = []
         self._order: list[int] = []
 
@@ -328,6 +422,7 @@ class Trainer:
                 stage, self.opt, self.pipe, self.spatial_lr_scale, self.raster_cfg,
                 env_min_roughness=self.envmap_min_roughness,
                 env_max_roughness=self.envmap_max_roughness,
+                tracer_cfg=self.tracer_cfg,
             )
         return self._steps[stage]
 
@@ -346,28 +441,52 @@ class Trainer:
                 if opt.lambda_normal_render_depth > 0 else 0.0
             ),
             "bg": self.bg,
+            # freeze_geo (env_gaussian_model3.py:200-213): past
+            # env_update_until_iter the env model's xyz/scaling LRs drop to 0.
+            "env_geo_lr_scale": 0.0 if iteration > opt.env_update_until_iter else 1.0,
         }
         if self.masks is not None:
             extra["image_mask"] = self.masks[cam_id]
         return extra
 
+    def _warp_gate(self, iteration: int, stage: str) -> bool:
+        """Whether the warp loss is live this iteration (trainer.py:777-784)."""
+        return (
+            self.with_warp
+            and stage in ("surfel", "surfel2")
+            and iteration > self.opt.multi_view_weight_from_iter
+        )
+
     def _run_step(self, iteration: int, stage: str) -> dict:
         cam_id = self._pick_view()
         extra = self._build_extra(iteration, cam_id)
         cam = self.cameras[cam_id]
-        rendered = self._step_fn(stage).render(self.state, cam, extra)
-        dropped, renders = 0, 0
+        mesh = self.mesh if stage == "surfel2" else None
+        rendered = self._step_fn(stage).render(self.state, cam, extra, mesh)
+        dropped, tracer_dropped, renders = 0, 0, 0
         while True:
-            overflow = int(rendered[0]["overflow"])
-            if overflow == 0 or not self._escalate_pair_capacity(overflow, iteration):
+            pkg = rendered[0]
+            overflow = int(pkg["overflow"])
+            tracer_overflow = int(pkg.get("tracer_overflow", 0))
+            cull_dropped = int(pkg.get("mesh_cull_dropped", 0))
+            raised = False
+            if overflow:
+                raised |= self._escalate_pair_capacity(overflow, iteration)
+            if tracer_overflow:
+                raised |= self._escalate_tracer_capacity(pkg, iteration)
+            if cull_dropped:
+                raised |= self._escalate_mesh_cull_cap(cull_dropped, iteration)
+            if not raised:
                 break
-            dropped, renders = dropped + overflow, renders + 1
-            del rendered  # free the truncated render's graph before redoing it
-            rendered =self._step_fn(stage).render(self.state, cam, extra)
+            dropped, tracer_dropped, renders = dropped + overflow, tracer_dropped + tracer_overflow, renders + 1
+            del rendered, pkg  # free the truncated render's graph before redoing it
+            rendered = self._step_fn(stage).render(self.state, cam, extra, mesh)
         metrics = self._step_fn(stage).update(self.state, cam, self.images[cam_id], extra, rendered)
         # Renders that dropped pairs and were redone, and the pairs they dropped.
         metrics["renders_redone"] = renders
         metrics["overflow_redone"] = dropped
+        if stage == "surfel2":
+            metrics["tracer_overflow_redone"] = tracer_dropped
         return metrics
 
     def train(self, num_iters: int, start_iter: int = 1, log_every: int = 100):
@@ -379,22 +498,114 @@ class Trainer:
                 raise _later_slice(stage)
             if iteration == opt.volume_render_until_iter + 1 and opt.volume_render_until_iter > opt.init_until_iter:
                 raise _later_slice("volume")  # the volume -> surfel material re-init
+            if self._warp_gate(iteration, stage):
+                raise NotImplementedError(
+                    f"iteration {iteration} opens the warp gate (multi_view_weight_from_iter "
+                    f"{opt.multi_view_weight_from_iter}): the multi-view warp loss is not ported "
+                    "yet; it comes with the multi-view/volume slice of the port"
+                )
+            if stage == "surfel2":
+                self._surfel2_onset(iteration)
 
             # SH degree ladder (train_refnerf.py:1109-1111).
             if iteration > opt.feature_rest_from_iter and iteration % opt.sh_ladder_interval == 0:
                 self.state.model.oneup_sh_degree()
 
             metrics = self._run_step(iteration, stage)
+            st = self.state
+            if stage == "surfel2":
+                if metrics["tracer_pairs"] > 0:
+                    self._env_signal_steps += 1
+                if int(st.env_gs.n_alive) == 0:
+                    # Extinction: an env cloud pruned to nothing never regrows
+                    # (densify clones alive gaussians); re-seed it.
+                    print(f"[warn] it={iteration}: env-GS cloud extinct (0 alive); re-seeding from the main model")
+                    st.init_env_gs()
+                    self._env_reset_at = None
+                    self._env_signal_steps = 0
+
+            # Mesh re-extraction before the densify/reset block: extracting
+            # after a reset would snapshot a just-reset model (trainer.py:962-974).
+            if (
+                (self.mesh_dir or self.use_mesh_visibility)
+                and iteration >= opt.indirect_from_iter
+                and iteration % self.mesh_every == 0
+            ):
+                self._extract_mesh(iteration)
             self._densify_and_reset(iteration, stage)
 
             if iteration % log_every == 0 or iteration == start_iter:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["iteration"] = iteration
                 m["stage"] = stage
-                m["n_alive"] = int(self.state.model.n_alive)
+                m["n_alive"] = int(st.model.n_alive)
+                if st.env_gs is not None:
+                    m["env_n_alive"] = int(st.env_gs.n_alive)
                 m["wall"] = time.time()
                 self.metrics_log.append(m)
         return self.state
+
+    def _surfel2_onset(self, iteration: int):
+        """At the first surfel2 iteration: the env-GS model, the mesh, and the
+        tracer budget sized from a demand probe (trainer.py:840-870)."""
+        if self.state.env_gs is None:
+            if self.pipe.indirect_type != "origin":
+                raise _later_slice("raytracing_residual")
+            self.state.init_env_gs()
+        if self.mesh is None and self.use_mesh_visibility:
+            self._extract_mesh(iteration)
+        if not self._tracer_presized:
+            self._tracer_presized = True
+            self._presize_tracer_capacity(iteration)
+
+    def _build_mips(self, env: EnvLightParams) -> EnvLightMips:
+        with torch.no_grad():
+            return EnvLightMips.build(env, n_samples=8, min_roughness=self.envmap_min_roughness,
+                                      max_roughness=self.envmap_max_roughness)
+
+    @torch.no_grad()
+    def _render_view(self, cam_id: int, mips: EnvLightMips) -> dict:
+        """A `surfel` render for the probe and the mesh (no gradient)."""
+        ropts = RenderOptions(unbiased_depth=self.pipe.unbiased_depth, raster=self.raster_cfg)
+        return render_surfel(self.state.model, self.cameras[cam_id], self.bg, mips, ropts)
+
+    def _presize_tracer_capacity(self, iteration: int):
+        """Probe the indirect trace's pair demand over up to 4 views drawn
+        from the Trainer's rng and size pair_capacity to fit it (x1.5,
+        doubling from min(capacity, 1<<16) up to the ceiling), keeping the
+        CLI's cluster:pair ratio (>> 7). The redo in _run_step stays the
+        safety net (trainer.py:1003-1088)."""
+        cfg = self.tracer_cfg
+        probe_cfg = dataclasses.replace(cfg, cluster_pair_capacity=max(cfg.cluster_pair_capacity, 1 << 16))
+        mips = self._build_mips(self.state.env1)
+        demand = 0
+        n_probe = min(4, len(self.cameras))
+        ids = self.rng.choice(len(self.cameras), size=n_probe, replace=False)
+        for cam_id in ids:
+            pkg = self._render_view(int(cam_id), mips)
+            alpha = pkg["rend_alpha"]
+            nmap = pkg["rend_normal"] / torch.clamp(alpha, min=1e-6)
+            cam = self.cameras[int(cam_id)]
+            demand = max(demand, tracer_demand_probe(self.state.env_gs, cam, nmap, pkg["surf_depth"], alpha,
+                                                     probe_cfg, self.mesh))
+            if self.mesh is None:
+                # Without a mesh render_surfel2 also traces the main cloud for
+                # visibility; each trace has its own pair buffer.
+                demand = max(demand, tracer_demand_probe(self.state.model, cam, nmap, pkg["surf_depth"], alpha,
+                                                         probe_cfg, None))
+        ceiling = self.MAX_TRACER_PAIR_CAPACITY
+        target = min(cfg.pair_capacity, 1 << 16)
+        while target < int(demand * 1.5) and target < ceiling:
+            target *= 2
+        if target != cfg.pair_capacity:
+            print(f"[it={iteration}] surfel2 onset: probed indirect-trace demand {demand} over {n_probe} "
+                  f"views; tracer pair_capacity {cfg.pair_capacity} -> {target} (ceiling {ceiling})")
+            self.tracer_cfg = dataclasses.replace(
+                cfg, pair_capacity=target, cluster_pair_capacity=max(target >> 7, 1 << 9))
+            self._steps.clear()
+        else:
+            print(f"[it={iteration}] surfel2 onset: probed indirect-trace demand {demand} fits "
+                  f"pair_capacity {cfg.pair_capacity}")
 
     def _escalate_pair_capacity(self, overflow: int, iteration: int) -> bool:
         """Double pair_capacity until the binning fits (bounded, like the
@@ -418,6 +629,44 @@ class Trainer:
         self._steps.clear()
         return True
 
+    def _escalate_tracer_capacity(self, pkg: dict, iteration: int) -> bool:
+        """Raise the tracer's budgets to what the render reported it needed
+        (fit_tracer_budgets), bounded by the ceiling. Returns False when
+        nothing could be raised."""
+        cfg = self.tracer_cfg
+        new = fit_tracer_budgets(cfg, pkg)
+        ceiling = self.MAX_TRACER_PAIR_CAPACITY
+        new = dataclasses.replace(
+            new, pair_capacity=min(new.pair_capacity, max(ceiling, cfg.pair_capacity)),
+            cluster_pair_capacity=min(new.cluster_pair_capacity,
+                                      max(self.MAX_TRACER_CLUSTER_PAIRS, cfg.cluster_pair_capacity)))
+        overflow = int(pkg["tracer_overflow"])
+        if new == cfg:
+            print(f"[warn] it={iteration}: tracer overflow {overflow} but its budgets are at their ceiling "
+                  f"({cfg.cluster_pair_capacity} cluster pairs, {cfg.pair_capacity} pairs); the step traces "
+                  "truncated")
+            return False
+        print(f"[it={iteration}] tracer overflow {overflow}; cluster_pair_capacity {cfg.cluster_pair_capacity} "
+              f"-> {new.cluster_pair_capacity}, pair_capacity {cfg.pair_capacity} -> {new.pair_capacity}, "
+              "step redone")
+        self.tracer_cfg = new
+        self._steps.clear()
+        return True
+
+    def _escalate_mesh_cull_cap(self, dropped: int, iteration: int) -> bool:
+        """Double the mesh tracer's per-block cluster budget (the cull is
+        exact only while cull_dropped == 0). Returns False at the ceiling."""
+        cap = self.tracer_cfg.mesh_cull_cap
+        if cap >= self.MAX_MESH_CULL_CAP:
+            print(f"[warn] it={iteration}: mesh cull dropped {dropped} clusters but mesh_cull_cap already "
+                  f"at MAX ({cap})")
+            return False
+        print(f"[it={iteration}] mesh cull dropped {dropped} clusters; mesh_cull_cap {cap} -> {2 * cap}, "
+              "step redone")
+        self.tracer_cfg = dataclasses.replace(self.tracer_cfg, mesh_cull_cap=2 * cap)
+        self._steps.clear()
+        return True
+
     def _densify(self, max_screen_size, min_opacity):
         gm.densify_and_prune(
             self.state.model, self.state.adam, self.generator,
@@ -427,10 +676,41 @@ class Trainer:
             max_screen_size=max_screen_size,
         )
 
-    def _densify_and_reset(self, iteration: int, stage: str):
-        """Densification + reset block (train_refnerf.py:1414-1462)."""
+    def _env_upkeep(self, iteration: int):
+        """Env-GS maintenance on its own schedule (update_env_gs_,
+        env_gaussian_model3.py:482-512; trainer.py:1175-1213): the SH ladder
+        until env_update_until_iter, densify/prune every env_densify_interval
+        (max_grad 1e-4; no prune while in the post-reset grace, counted in
+        steps with traced pairs; screen-size prune past the first reset
+        interval), and the opacity reset every env_reset_interval."""
         opt = self.opt
         st = self.state
+        if iteration <= opt.env_update_until_iter and iteration % opt.sh_ladder_interval == 0:
+            st.env_gs.oneup_sh_degree()
+        if iteration < opt.env_update_until_iter and iteration % opt.env_densify_interval == 0:
+            in_grace = self._env_reset_at is not None and self._env_signal_steps < opt.env_prune_grace
+            if in_grace:
+                min_opacity, max_screen = 0.0, None
+            elif iteration > opt.env_reset_interval:
+                min_opacity, max_screen = opt.prune_opacity_threshold, 20.0
+            else:
+                min_opacity, max_screen = opt.prune_opacity_threshold, None
+            gm.densify_and_prune(st.env_gs, st.env_adam, self.generator, max_grad=1e-4,
+                                 min_opacity=min_opacity, extent=self.cameras_extent,
+                                 max_screen_size=max_screen)
+            if iteration % opt.env_reset_interval == 0:
+                gm.reset_opacity0(st.env_gs)
+                st.env_adam.zero_param("opacity")
+                self._env_reset_at = iteration
+                self._env_signal_steps = 0
+
+    def _densify_and_reset(self, iteration: int, stage: str):
+        """Densification + reset block (train_refnerf.py:1414-1462); the env
+        model's upkeep runs first, on its own schedule."""
+        opt = self.opt
+        st = self.state
+        if st.env_gs is not None:
+            self._env_upkeep(iteration)
         if iteration >= opt.densify_until_iter or iteration == opt.volume_render_until_iter:
             return
         if iteration <= opt.init_until_iter:
@@ -489,3 +769,33 @@ class Trainer:
         model = self.state.model
         center = torch.tensor(self.opt.env_scope_center, dtype=torch.float32, device=model.device)
         return torch.sum((model.xyz - center) ** 2, dim=-1) > self.opt.env_scope_radius**2
+
+    @torch.no_grad()
+    def _extract_mesh(self, iteration: int):
+        """TSDF mesh extraction over every train view (trainer.py:1375-1446):
+        write meshes/test_{iteration:06d}.ply when mesh_dir is set, and with
+        mesh visibility rebuild the traced mesh, decimated to
+        MESH_TRI_CAPACITY triangles."""
+        from materialrefgs_torch.ops import mesh_tracer as mt
+        from materialrefgs_torch.train import mesh_extract as me
+
+        t0 = time.perf_counter()
+        mips = self._build_mips(self.state.env1)
+        depths, alphas = [], []
+        for i in range(len(self.cameras)):
+            pkg = self._render_view(i, mips)
+            depths.append(pkg["surf_depth"].cpu().numpy())
+            alphas.append(pkg["rend_alpha"][..., 0].cpu().numpy())
+        extract = me.extract_mesh_unbounded if self.opt.unbounded_mesh else me.extract_mesh
+        verts, faces = extract(self.cameras, depths, alphas, resolution=self.MESH_RESOLUTION,
+                               num_cluster=self.opt.num_cluster)
+        if self.mesh_dir:
+            me.write_mesh_ply(f"{self.mesh_dir}/test_{iteration:06d}.ply", verts, faces)
+        n_full = len(faces)
+        if self.use_mesh_visibility:
+            if len(faces) > self.MESH_TRI_CAPACITY:
+                verts, faces = me.decimate_vertex_clustering(verts, faces, self.MESH_TRI_CAPACITY)
+            self.mesh = mt.build_mesh(verts, faces, device=self.state.model.device)
+        seconds = time.perf_counter() - t0
+        self.mesh_log.append((iteration, n_full, seconds))
+        print(f"[mesh] it={iteration}: {n_full} triangles ({len(faces)} traced) in {seconds:.1f} s")

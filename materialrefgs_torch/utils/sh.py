@@ -122,6 +122,41 @@ def sh_basis(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, n_sh: int) -> li
     return Y
 
 
+def sh_basis_grad(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, n_sh: int) -> list:
+    """The analytic Jacobian of sh_basis with respect to the unit direction
+    (materialrefgs_tpu/ops/tracer/pallas_kernels.py:128-157): a list of n_sh
+    (d/dx, d/dy, d/dz) triples of tensors shaped like x. The tracer's
+    backward chains the ray-direction gradient through it; its CUDA kernel
+    repeats the expressions operation for operation."""
+    if n_sh not in (1, 4, 9, 16):
+        raise ValueError(f"n_sh must be 1, 4, 9 or 16, got {n_sh}")
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    G = [(zero, zero, zero)]
+    if n_sh >= 4:
+        G += [(zero, -C1 * one, zero), (zero, zero, C1 * one), (-C1 * one, zero, zero)]
+    if n_sh >= 9:
+        xx, yy, zz = x * x, y * y, z * z
+        G += [
+            (C2[0] * y, C2[0] * x, zero),
+            (zero, C2[1] * z, C2[1] * y),
+            (-2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+            (C2[3] * z, zero, C2[3] * x),
+            (2.0 * C2[4] * x, -2.0 * C2[4] * y, zero),
+        ]
+    if n_sh >= 16:
+        G += [
+            (6.0 * C3[0] * x * y, C3[0] * (3.0 * xx - 3.0 * yy), zero),
+            (C3[1] * y * z, C3[1] * x * z, C3[1] * x * y),
+            (-2.0 * C3[2] * x * y, C3[2] * (4.0 * zz - xx - 3.0 * yy), 8.0 * C3[2] * y * z),
+            (-6.0 * C3[3] * x * z, -6.0 * C3[3] * y * z, C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy)),
+            (C3[4] * (4.0 * zz - 3.0 * xx - yy), -2.0 * C3[4] * x * y, 8.0 * C3[4] * x * z),
+            (2.0 * C3[5] * x * z, -2.0 * C3[5] * y * z, C3[5] * (xx - yy)),
+            (C3[6] * (3.0 * xx - 3.0 * yy), -6.0 * C3[6] * x * y, zero),
+        ]
+    return G
+
+
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does: +0.5 then clamp to >= 0.
     sh: (..., 3, K), dirs: (..., 3) (need not be normalized)."""

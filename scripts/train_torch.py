@@ -1,19 +1,23 @@
 """Training CLI of the PyTorch/CUDA port (the counterpart of scripts/train.py)
-for the refnerf curriculum up to the start of `surfel2`: stages `initial`
-and `surfel` on Blender-layout scenes. Runs on the CUDA card unless
---device cpu is given.
+for the refnerf curriculum's stages `initial`, `surfel` and `surfel2` (env-GS
+traced indirect light, mesh visibility, exact-order tracing) on
+Blender-layout scenes. Runs on the CUDA card unless --device cpu is given.
 
 Usage:
   python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet \
-      --iterations 20000
+      --iterations 25000
   python scripts/train_torch.py -s <scene> -m <out> --schedule_scale 0.01 \
-      --iterations 60 --device cpu
+      --iterations 240 --device cpu
 
-Writes point_cloud/iteration_N/point_cloud.ply (+ the env maps) that
+Writes point_cloud/iteration_N/point_cloud.ply (+ the env maps, and past the
+surfel2 onset env_point_cloud.ply) and meshes/test_XXXXXX.ply that
 scripts/eval_torch.py loads, cfg_args.json, train_log.json, and checkpoints
-(chkpnt{N}.pt). What the later slices of the port bring raises
-NotImplementedError: --dp, --metric3d_path, --ref_score_path, --start_ply
-with an env cloud, and iterations past indirect_from_iter (surfel2).
+(chkpnt{N}.pt). When multi_view_ncc_weight > 0 (refnerf: 0.15) the run asks
+for the multi-view warp loss as scripts/train.py does; the port does not have
+it yet, so such a run stops with NotImplementedError at the iteration whose
+warp gate opens (multi_view_weight_from_iter, refnerf 25000 x
+schedule_scale). Also raising NotImplementedError: --dp, --metric3d_path,
+--ref_score_path.
 """
 import argparse
 import dataclasses
@@ -59,6 +63,18 @@ def main(argv=None) -> dict:
                          "factor; applied before --iterations and explicit flags")
     ap.add_argument("--capacity", type=int, default=1 << 19)
     ap.add_argument("--pair_capacity", type=int, default=1 << 20)
+    ap.add_argument("--tracer_pair_capacity", type=int, default=None,
+                    help="splat-tracer pair budget (default: --pair_capacity); also the "
+                         "ceiling of its escalation when given")
+    ap.add_argument("--approx_tracer_order", action="store_true",
+                    help="train the env-GS trace in the shared list order instead of each "
+                         "ray's exact hit order (eval is always exact)")
+    ap.add_argument("--no_mesh_visibility", action="store_true",
+                    help="splat-traced soft visibility past indirect_from_iter instead of "
+                         "the extracted mesh's")
+    ap.add_argument("--mesh_every", type=int, default=None,
+                    help="TSDF mesh re-extraction interval past indirect_from_iter "
+                         "(default 2000 x schedule_scale)")
     ap.add_argument("--save_iterations", type=int, nargs="+", default=None)
     ap.add_argument("--test_iterations", type=int, nargs="+", default=None)
     ap.add_argument("--test_every", type=int, default=0,
@@ -92,8 +108,10 @@ def main(argv=None) -> dict:
         raise NotImplementedError("--metric3d_path (mono-normal priors) comes with the multi-view/volume slice of the port")
     if args.ref_score_path:
         raise NotImplementedError("--ref_score_path (ref-score masks) comes with the multi-view/volume slice of the port")
-    if args.start_ply and os.path.exists(os.path.join(args.start_ply, "env_point_cloud.ply")):
-        raise NotImplementedError("--start_ply with an env cloud (env-GS) comes with the surfel2 slice of the port")
+    if args.mesh_every is None:
+        # The mesh cadence is a curriculum literal (train_refnerf.py:1459):
+        # it compresses with the schedule.
+        args.mesh_every = max(1, round(2000 * args.schedule_scale))
 
     import torch
 
@@ -104,7 +122,9 @@ def main(argv=None) -> dict:
     from materialrefgs_torch.models.env_light import EnvLightMips
     from materialrefgs_torch.models.scene import Scene
     from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+    from materialrefgs_torch.ops.tracer.api import TracerConfig
     from materialrefgs_torch.render.renderers import RenderOptions
+    from materialrefgs_torch.train.optim import Adam
     from materialrefgs_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from materialrefgs_torch.train.stages import select_stage
     from materialrefgs_torch.train.trainer import Trainer
@@ -163,14 +183,24 @@ def main(argv=None) -> dict:
         print(f"Initialized {len(pcd.points)} gaussians (capacity {args.capacity})")
 
     bg = (1.0, 1.0, 1.0) if model_params.white_background else (0.0, 0.0, 0.0)
+    tracer_pairs = args.tracer_pair_capacity or args.pair_capacity
     trainer = Trainer(
         model, scene.train_cameras, images, opt, pipe,
         cameras_extent=scene.cameras_extent, bg_color=bg,
         raster_cfg=RasterizeConfig(pair_capacity=args.pair_capacity),
         seed=args.seed, envmap_res=model_params.envmap_max_res, masks=masks,
+        with_warp=opt.multi_view_ncc_weight > 0,
         envmap_min_roughness=model_params.envmap_min_roughness,
         envmap_max_roughness=model_params.envmap_max_roughness,
+        tracer_cfg=TracerConfig(pair_capacity=tracer_pairs, cluster_pair_capacity=tracer_pairs >> 7,
+                                mesh_cull_cap=512, exact_order=not args.approx_tracer_order),
+        mesh_dir=os.path.join(args.model_path, "meshes"),
+        mesh_every=args.mesh_every,
+        use_mesh_visibility=not args.no_mesh_visibility,
     )
+    if args.tracer_pair_capacity:
+        # An explicit tracer budget is also its escalation's ceiling.
+        trainer.MAX_TRACER_PAIR_CAPACITY = args.tracer_pair_capacity
 
     save_iters = set(args.save_iterations or [opt.iterations])
     ckpt_iters = set(args.checkpoint_iterations or [])
@@ -191,6 +221,13 @@ def main(argv=None) -> dict:
         if e2 is not None:
             trainer.state.env2.base.data.copy_(e2.base)
         trainer.state.step = args.start_iter
+        env_ply = os.path.join(args.start_ply, "env_point_cloud.ply")
+        if os.path.exists(env_ply):
+            env_gs, _, _ = gaussian_io.load_ply(env_ply, capacity=args.capacity,
+                                                max_sh_degree=model_params.sh_degree, device=device)
+            trainer.state.env_gs = env_gs
+            trainer.state.env_adam = Adam({k: v.detach() for k, v in trainer.state.env_params().items()})
+            print(f"Warm-started {int(env_gs.n_alive)} env gaussians from {env_ply}")
         done = args.start_iter
     marks = {m for m in marks if m > done}
 
@@ -207,13 +244,18 @@ def main(argv=None) -> dict:
                 mips = EnvLightMips.build(st.env1, min_roughness=model_params.envmap_min_roughness,
                                           max_roughness=model_params.envmap_max_roughness)
             stage = select_stage(target, opt)
+            surfel2 = stage == "surfel2"
             m = render_set(
                 os.path.join(args.model_path, f"test_{target}"), "test", scene.test_cameras,
                 [scene.test_image(i) for i in range(len(scene.test_cameras))], st.model, mips,
+                env_model=st.env_gs if surfel2 else None,
                 opts=RenderOptions(unbiased_depth=pipe.unbiased_depth, srgb=opt.srgb,
                                    depth_ratio=pipe.depth_ratio,
                                    raster=RasterizeConfig(pair_capacity=trainer.raster_cfg.pair_capacity)),
+                # Test renders trace in exact order, whatever the training order.
+                tracer_cfg=dataclasses.replace(trainer.tracer_cfg, exact_order=True),
                 dump_maps=False, bg_color=bg, stage="initial" if stage == "initial" else "surfel",
+                mesh=trainer.mesh if surfel2 else None,
             )
             results["test"][target] = m
             print(f"[{target}] test psnr {m['psnr']:.2f}")
@@ -228,6 +270,8 @@ def main(argv=None) -> dict:
                                    "seed": args.seed})
             out = os.path.join(args.model_path, f"point_cloud/iteration_{target}/point_cloud.ply")
             gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
+            if trainer.state.env_gs is not None:
+                gaussian_io.save_ply(trainer.state.env_gs, os.path.join(os.path.dirname(out), "env_point_cloud.ply"))
             results["ply"] = out
             last = trainer.metrics_log[-1] if trainer.metrics_log else {}
             print(f"[{target}] saved; psnr={last.get('psnr', float('nan')):.2f} "

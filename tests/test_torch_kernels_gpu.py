@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (tile rasterizer forward and
-backward, bundle tracer forward) against their plain torch versions, on the
-card. Marked `gpu`; each test skips where no CUDA card is present.
+backward, bundle tracer forward and backward) against their plain torch
+versions, on the card. Marked `gpu`; each test skips where no CUDA card is present.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -17,7 +17,7 @@ from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd  # noqa: E402
 from materialrefgs_torch.ops.rasterize.layout import out_layout  # noqa: E402
 from materialrefgs_torch.ops.tracer import api as tracer_api  # noqa: E402
 from materialrefgs_torch.ops.tracer import layout as tlay  # noqa: E402
-from materialrefgs_torch.ops.tracer import trace_fwd  # noqa: E402
+from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd  # noqa: E402
 
 # Per output group (tests/test_rasterize_pallas.py); contributor indices exact.
 TOLS = {
@@ -202,3 +202,84 @@ def test_trace_fwd_kernel_matches_plain(cuda_device, n_sh, exact):
     for c in (tlay.OUT_NCONTRIB, tlay.OUT_NPROC):
         assert np.array_equal(out[..., c], ref[..., c]), c
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def _per_value_ok(out, ref):
+    """|out - ref| <= 1e-4 x min(|ref| + the group's p99 |ref|, the group's
+    max |ref|) + 1e-7 (the rasterizer backward's rule: sums over a bundle's
+    rays and a chunk's lanes are taken in another order)."""
+    mag = np.abs(ref)
+    nz = mag[mag > 0]
+    p99 = float(np.quantile(nz, 0.99)) if nz.size else 0.0
+    tol = 1e-4 * np.minimum(mag + p99, mag.max()) + 1e-7
+    return float((np.abs(out - ref) / tol).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [False, True], ids=["list", "exact"])
+@pytest.mark.parametrize("n_sh", [1, 16])
+def test_trace_bwd_kernel_matches_plain(cuda_device, n_sh, exact):
+    """Payload and ray gradients for a random cotangent on rgb, depth, normal
+    and final_T, per value within _per_value_ok's rule for each payload row
+    group and for ray origin and direction; columns outside the walked chunks
+    zero."""
+    (o, d, means, scales, rots, opac, shs), mask = _trace_scene(4, cuda_device)
+    captured = {}
+    real = tracer_api.trace_bundles_fwd
+
+    def capture(*args, **kw):
+        captured["args"], captured["kw"] = args, kw
+        return real(*args, **kw)
+
+    tracer_api.trace_bundles_fwd = capture
+    try:
+        with torch.no_grad():
+            tracer_api.trace(o, d, means, scales, rots, opac, shs,
+                             tracer_api.TracerConfig(pair_capacity=1 << 17, exact_order=exact),
+                             sh_degree=3 if n_sh == 16 else 0, bundle_mask=mask)
+    finally:
+        tracer_api.trace_bundles_fwd = real
+    payload, rays, start, count = captured["args"]
+    kw = captured["kw"]
+    fwd = trace_fwd.trace_bundles_fwd(payload, rays, start, count, **kw)
+    if exact:
+        active = torch.amax(fwd[..., tlay.OUT_NPROC], dim=1).to(torch.int32) * tlay.K_CHUNK
+    else:
+        active = torch.amax(fwd[..., tlay.OUT_NCONTRIB], dim=1).to(torch.int32)
+    assert int(active.max()) > 3 * tlay.K_CHUNK  # a multi-chunk walk
+    cot = torch.zeros_like(fwd)
+    cot[..., :8] = torch.randn(fwd.shape[:2] + (8,), device=cuda_device,
+                               generator=torch.Generator(device=cuda_device).manual_seed(n_sh + exact))
+    args = (payload, rays, start, count, active, fwd, cot)
+    before = trace_bwd.trace_bundles_bwd.launches
+    dp, dr = trace_bwd.trace_bundles_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert trace_bwd.trace_bundles_bwd.launches == before + 1
+    rp, rr = trace_bwd.trace_bundles_bwd_plain(*args, **kw)
+    dp, dr, rp, rr = (x.cpu().numpy() for x in (dp, dr, rp, rr))
+    assert np.all(np.isfinite(dp)) and np.all(np.isfinite(dr))
+    nrow = 13 + 3 * n_sh
+    assert np.all(dp[nrow:] == 0.0)
+    for lo, hi in ((0, 3), (3, 6), (6, 9), (9, 12), (12, 13), (13, nrow)):
+        assert _per_value_ok(dp[lo:hi], rp[lo:hi]) <= 1.0, (lo, hi)
+    for lo, hi in ((0, 3), (3, 6)):
+        assert _per_value_ok(dr[..., lo:hi], rr[..., lo:hi]) <= 1.0, (lo, hi)
+    assert np.all(dr[..., 6:] == 0.0)
+
+
+@pytest.mark.gpu
+def test_trace_autograd_launches_both_kernels(cuda_device):
+    """One forward and one backward tracer launch per differentiated trace."""
+    arrays, mask = _trace_scene(5, cuda_device)
+    for a in arrays:
+        a.requires_grad_(True)
+    f0, b0 = trace_fwd.trace_bundles_fwd.launches, trace_bwd.trace_bundles_bwd.launches
+    out = tracer_api.trace(*arrays, tracer_api.TracerConfig(pair_capacity=1 << 17, exact_order=True),
+                           sh_degree=3, bundle_mask=mask)
+    grads = torch.autograd.grad(out["rgb"].sum() + out["depth"].sum() + out["final_T"].sum(), arrays)
+    torch.cuda.synchronize()
+    assert trace_fwd.trace_bundles_fwd.launches == f0 + 1
+    assert trace_bwd.trace_bundles_bwd.launches == b0 + 1
+    for g in grads:
+        assert torch.isfinite(g).all()
+    assert float(grads[2].abs().sum()) > 0

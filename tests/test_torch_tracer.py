@@ -247,14 +247,25 @@ def test_trace_demand_and_reference_match_jax():
 
 
 def test_trace_refuses_autograd():
+    """What the serving slice refused now runs (the surfel2 training slice):
+    trace under autograd gives finite gradients (their parity with the JAX
+    package is tests/test_torch_tracer_bwd.py's), the demand the trainer's
+    probe counts is the trace's pair count, and mesh extraction of views that
+    observed nothing returns an empty mesh."""
     o, d, means, scales, rots, opac, shs = _trace_scene()
     m = _t(means).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="surfel2 training slice"):
-        tapi.trace(_t(o), _t(d), m, _t(scales), _t(rots), _t(opac), _t(shs))
-    with pytest.raises(NotImplementedError, match="surfel2 training slice"):
-        tenvgs.tracer_demand_probe()
-    with pytest.raises(NotImplementedError, match="surfel2 training slice"):
-        extract_mesh()
+    out = tapi.trace(_t(o), _t(d), m, _t(scales), _t(rots), _t(opac), _t(shs))
+    (g,) = torch.autograd.grad(out["rgb"].sum(), m)
+    assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+    assert tapi.trace_demand(_t(o), _t(d), _t(means), _t(scales), _t(opac)) == out["pairs"] > 0
+    assert callable(tenvgs.tracer_demand_probe)
+    from materialrefgs_torch.cameras import look_at_camera
+
+    cam = look_at_camera(np.array([0.0, 0.0, -3.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]), 0.8, 0.8, 16, 16,
+                         device="cpu")
+    verts, faces = extract_mesh([cam], [np.zeros((16, 16), np.float32)], [np.zeros((16, 16), np.float32)],
+                                resolution=8)
+    assert len(faces) == 0
     with torch.no_grad():
         assert tapi.trace(_t(o), _t(d), m, _t(scales), _t(rots), _t(opac), _t(shs))["pairs"] > 0
 

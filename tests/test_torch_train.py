@@ -454,12 +454,23 @@ def test_trainer_escalates_overflow_and_refuses_later_slices():
     trainer.MAX_PAIR_CAPACITY = 1 << 7
     trainer.train(1, start_iter=4, log_every=1)
     assert trainer.metrics_log[-1]["overflow"] > 0
-    with pytest.raises(NotImplementedError, match="surfel2"):
-        trainer.train(1, start_iter=5)
-    for kw, match in ((dict(normal_priors=[0]), "mono-normal"), (dict(ref_score_masks=[0]), "ref-score"),
-                      (dict(with_warp=True), "warp")):
+    # Past indirect_from_iter the surfel2 stage runs: env-GS init, the mesh,
+    # the traced step (still truncated by the rasterizer's ceiling).
+    trainer.MESH_RESOLUTION = 32
+    trainer.train(1, start_iter=5, log_every=1)
+    m = trainer.metrics_log[-1]
+    assert m["stage"] == "surfel2" and m["env_n_alive"] > 0 and np.isfinite(m["loss"])
+    assert trainer.state.env_gs is not None and trainer.state.env_adam.count == 1
+    for kw, match in ((dict(normal_priors=[0]), "mono-normal"), (dict(ref_score_masks=[0]), "ref-score")):
         with pytest.raises(NotImplementedError, match=match):
             ttr.Trainer(model, cams, images, opt, tcfg.PipelineParams(), **kw)
+    # A run that asks for the warp loss trains up to its gate and stops at
+    # the first iteration past multi_view_weight_from_iter.
+    warp = ttr.Trainer(model, cams, images, dataclasses.replace(opt, multi_view_weight_from_iter=3),
+                       tcfg.PipelineParams(), with_warp=True, envmap_res=16)
+    with pytest.raises(NotImplementedError, match="warp"):
+        warp.train(4, log_every=1)
+    assert [m["iteration"] for m in warp.metrics_log] == [1, 2, 3]
     with pytest.raises(NotImplementedError, match="LPIPS"):
         ttr.Trainer(model, cams, images, dataclasses.replace(opt, use_perceptual_loss=True),
                     tcfg.PipelineParams())
