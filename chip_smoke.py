@@ -56,10 +56,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      redoes a view that overflows them at budgets that fit; counts zeroed
      just before each run, read right after;
  11. for view 0 of each set, the tracer kernel against its plain version at
-     the inputs the eval's path gives it (each launch kind; a ring view's
-     visibility and mesh-gated launches on 192 of their bundles), its time
-     (CUDA events), its plain version's (timed in the comparison run) and
-     its bound; the tracer's backward kernel alone at ring view 0's
+     the inputs the eval's path gives it (each launch kind, every bundle),
+     its time (CUDA events), its plain version's (timed in the comparison
+     run) and its bound; the tracer's backward kernel alone at ring view 0's
      env-trace inputs (time, bound, peak memory); one render_surfel2 view
      per visibility mode under torch.profiler with its peak device memory,
      and the mesh tracer's device time;
@@ -75,9 +74,9 @@ Phases (any failure exits non-zero before the result lines are printed):
  13. learning check: 30 `surfel2` steps from the same onset (and phase
      12's onset mesh) with densification, resets and mesh re-extraction off
      must raise the train PSNR by >= 0.3 dB;
- 14. the tracer's backward kernel at one training step's captured inputs:
-     its time on the whole step, and against its plain version, both times
-     and its bound on 192 of the step's bundles; and the Trainer's
+ 14. the tracer's backward kernel at one training step's captured inputs
+     against its plain version on every bundle, both times and its bound
+     (counted from the plain version's work); and the Trainer's
      `surfel2` step (host clock, torch.profiler device-busy share and top
      kernels, the mesh tracer's device time, peak memory).
 
@@ -289,14 +288,6 @@ TRACE_HIT_FLOPS = 45
 # The tracer launch the kernels' record reports: the env trace of a view that
 # sees the whole object.
 TRACE_ROW = "ring view 0, env, no mesh (n_sh=16)"
-# Phase 11's other launch kinds above this many pairs hold the kernel to its
-# plain version on this many of their bundles (the plain version takes ~40 s
-# per ring-view launch on every bundle).
-SUBSET_PAIRS, SUBSET_BUNDLES = 20_000_000, 192
-# Bundles of a training step's env trace on which phase 14 holds and times the
-# tracer's backward against its plain version, and the longest segment (in
-# 128-pair chunks) a bundle of these subsets may have.
-STEP_SUBSET, SHORT_WALK = 192, 64
 
 
 # FP32 operations the tracer's backward needs (csrc/trace_bwd.cu) for this
@@ -451,20 +442,6 @@ def env_cloud_arrays(np, PARAM_SHAPES, rgb_to_sh, torch, P=P_SPLATS, seed=1):
         features_rest=(rng.normal(size=(P, 15, 3)) * 0.15).astype(np.float32),
     )
     return arrays
-
-
-def short_walk_subset(args, n):
-    """The tracer inputs (payload, rays, seg_start, seg_count, ...per-bundle
-    arrays) cut to n bundles with pairs and at most SHORT_WALK chunks, evenly
-    spread over them. The plain versions walk a chunk's 128 positions one at
-    a time, so their time follows the longest segment (a silhouette
-    bundle's 800-1,200 chunks: about a minute), not the bundle count."""
-    import torch
-
-    count = args[3]
-    ok = torch.nonzero((count > 0) & (count <= SHORT_WALK * 128)).squeeze(1)
-    idx = ok[:: max(1, ok.numel() // n)][:n]
-    return (args[0], args[1][idx], torch.cat([args[2][idx], args[2][-1:]]), *(x[idx] for x in args[3:]))
 
 
 def capture_trace(torch, tracer_api, fn):
@@ -1193,43 +1170,29 @@ def main() -> int:
     trace_times = {}
 
     def time_trace(what, targs, tkw):
-        """The kernel against its plain version on one launch's inputs, both
-        times, and the bound counted from the plain version's outcomes. Past
-        SUBSET_PAIRS pairs (the ring views' 21-68M), only the launch the
-        kernels' record reports (TRACE_ROW) runs the plain version on every
-        bundle; the others compare and time it on SUBSET_BUNDLES of their
-        bundles (short_walk_subset), and their bound, which needs the plain
-        version's outcomes on every bundle, is not counted (PERF.md keeps
-        PR 3's)."""
+        """The kernel against its plain version on one launch's inputs (every
+        bundle), both times, and the bound counted from the plain version's
+        outcomes."""
         n_sh = tkw["n_sh"]
-        full = targs
-        subset = what != TRACE_ROW and int(targs[3].sum()) > SUBSET_PAIRS
-        if subset:
-            targs = short_walk_subset(targs, SUBSET_BUNDLES)
         out_t = trace_fn(*targs, **tkw)
         torch.cuda.synchronize()
         work_t = {}
-        # The plain version is timed in its comparison run.
+        # The plain version is timed in its comparison run (~40-75 s at a
+        # ring view: it walks the longest segment's positions one at a time).
         res_t = {}
         p_ms = cuda_ms(torch, lambda: res_t.update(
             ref=trace_fwd.trace_bundles_fwd_plain(*targs, **tkw, work=work_t)), 1)
-        err = compare_trace(np, out_t.cpu().numpy(), res_t.pop("ref").cpu().numpy(),
-                            what + (f", {targs[1].shape[0]} of its bundles" if subset else ""))
+        err = compare_trace(np, out_t.cpu().numpy(), res_t.pop("ref").cpu().numpy(), what)
         for _ in range(3):
-            trace_fn(*full, **tkw)
-        k_ms = cuda_ms(torch, lambda: trace_fn(*full, **tkw), 10)
+            trace_fn(*targs, **tkw)
+        k_ms = cuda_ms(torch, lambda: trace_fn(*targs, **tkw), 10)
         if what == TRACE_ROW:
             time_trace_bwd(targs, tkw, out_t, work_t)
         del out_t
-        NBt = full[1].shape[0]
-        print(f"  {what}: {NBt} bundles, {int(full[3].sum())} pairs in segments, "
-              f"{int((full[3] > 0).sum())} bundles with pairs, {int(full[3].max() + 127) // 128} "
+        NBt = targs[1].shape[0]
+        print(f"  {what}: {NBt} bundles, {int(targs[3].sum())} pairs in segments, "
+              f"{int((targs[3] > 0).sum())} bundles with pairs, {int(targs[3].max() + 127) // 128} "
               f"chunks in the longest segment")
-        if subset:
-            trace_times[what] = dict(ms=k_ms, plain_ms=None, bound=None, err=err, by=None)
-            print(f"    kernel ms per view: {k_ms:.4f}; plain version ms on {targs[1].shape[0]} bundles "
-                  f"({int(targs[3].sum())} pairs): {p_ms:.1f}; bound not counted (see time_trace)")
-            return
         pairs_read = work_t["hit_tests"] // 256
         b_bytes = 4 * ((13 + 3 * n_sh) * pairs_read + NBt * 256 * 8 + NBt * 256 * 16 + 2 * NBt + 1)
         b_flops = trace_flops(work_t, n_sh, tkw["exact_order"])
@@ -1350,7 +1313,9 @@ def main() -> int:
     # post-reset grace covered 31-60), so the prune at 205 removes 98 % of
     # them and the run then traces a near-empty model; the opacity reset at
     # 210 leaves nothing for the TSDF at 220. The env model's upkeep (densify
-    # every 5, reset at 240) runs before that cut-off and is unaffected.
+    # every 5, reset at 240) runs before that cut-off and is unaffected. The
+    # main model's densify, prune and reset inside surfel2 are held on the
+    # CPU (tests/test_torch_train_surfel2.py).
     s2_argv = ["-s", train_scene, "-m", s2_run, "--schedule_scale", "0.01", "--start_ply", start_dir,
                "--start_iter", str(S2_START), "--iterations", str(S2_END), "--capacity", str(1 << 19),
                "--pair_capacity", str(1 << 20), "--densify_until_iter", str(S2_START), "--log_every", "1",
@@ -1481,24 +1446,18 @@ def main() -> int:
         tapi_mod.trace_bundles_bwd = real_bwd
     peak2 = torch.cuda.max_memory_allocated() / 2**30
     check(len(step_cap) == 1, f"one training step launched the tracer backward {len(step_cap)} times")
-    (full_args, skw), = step_cap
+    (sargs, skw), = step_cap
     n_sh_s = skw["n_sh"]
-    for _ in range(3):
-        trace_bwd_fn(*full_args, **skw)
-    full_ms = cuda_ms(torch, lambda: trace_bwd_fn(*full_args, **skw), 10)
-    # The plain version takes minutes on a whole training step's trace, so
-    # the kernel, its plain version and the bound are held and timed on
-    # STEP_SUBSET of the step's bundles (short_walk_subset), each with its
-    # real pair list.
-    with_pairs = torch.nonzero(full_args[3] > 0).squeeze(1)
-    sargs = short_walk_subset(full_args, STEP_SUBSET)
+    # The kernel against its plain version on every bundle of the step (the
+    # silhouette bundles' walks of hundreds of chunks included), the plain
+    # version timed in its comparison run, the bound from its work counts.
     dp, dr = trace_bwd_fn(*sargs, **skw)
     torch.cuda.synchronize()
     swork, sres = {}, {}
     s_plain_ms = cuda_ms(torch, lambda: sres.update(ref=trace_bwd.trace_bundles_bwd_plain(*sargs, **skw, work=swork)), 1)
     rp, rr = sres.pop("ref")
     s_bwd_err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh_s,
-                                  f"training step {it_next} backward, {sargs[1].shape[0]} of its bundles (n_sh={n_sh_s}, "
+                                  f"training step {it_next} backward, every bundle (n_sh={n_sh_s}, "
                                   f"{'exact' if skw['exact_order'] else 'list'} order)")
     del dp, dr, rp, rr
     for _ in range(3):
@@ -1509,17 +1468,15 @@ def main() -> int:
     s_flops = trace_bwd_flops(swork, n_sh_s, skw["exact_order"])
     tb_, to_ = s_bytes / PEAK_BYTES_PER_S * 1e3, s_flops / PEAK_FP32_FLOPS * 1e3
     s_bound, s_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
-    print(f"  tracer bwd kernel ms at the whole step's inputs: {full_ms:.4f} ({full_args[1].shape[0]} bundles, "
-          f"{with_pairs.numel()} with pairs, {int(full_args[3].sum())} pairs, {int(full_args[4].max()) // 128} "
-          f"chunks in the longest walk)")
-    print(f"  on {NBs} of its bundles ({int(sargs[3].sum())} pairs, {int(sargs[4].max()) // 128} chunks in the "
-          f"longest walk): kernel ms {s_ms:.4f}; plain version ms {s_plain_ms:.2f} (timed in its comparison run)")
-    print(f"  tracer bwd bound ms on those bundles: {s_bound:.4f} (by {s_by}: {s_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
+    print(f"  tracer bwd at the step's inputs ({NBs} bundles, {int((sargs[3] > 0).sum())} with pairs, "
+          f"{int(sargs[3].sum())} pairs, {int(sargs[4].max()) // 128} chunks in the longest walk): kernel ms "
+          f"{s_ms:.4f}; plain version ms {s_plain_ms:.1f} (timed in its comparison run)")
+    print(f"  tracer bwd bound ms: {s_bound:.4f} (by {s_by}: {s_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
           f"{s_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {swork['hit_tests']} hit tests, {swork['hits']} hits, "
           f"{swork['contribs']} composited, {swork['sort_compares']:.0f} sort compares); kernel at "
           f"{100 * s_bound / s_ms:.1f} % of it")
     print("  tracer bwd library call: none computes this function")
-    del step_cap, sargs, full_args
+    del step_cap, sargs
 
     # Host time per step: the learning check's steps (the Trainer's log
     # stamps each step's end), without its first.

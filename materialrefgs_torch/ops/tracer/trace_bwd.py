@@ -179,11 +179,14 @@ def trace_bundles_bwd_plain(
     dpayload = torch.zeros_like(payload)
     drays = torch.zeros((NB, NRAY, 8), dtype=torch.float32, device=payload.device)
     counts = None if work is None else _work_counters(payload.device)
+    # Blocks of bundles with like walks: a block takes as many chunk steps
+    # as its longest walk, and the long (silhouette) walks are few.
+    order = torch.argsort(seg_active, descending=True, stable=True)
     for b0 in range(0, NB, BUNDLE_BLOCK):
-        b1 = min(NB, b0 + BUNDLE_BLOCK)
-        drays[b0:b1] = _plain_bundles(
-            payload, dpayload, rays[b0:b1], seg_start[b0:b1], seg_count[b0:b1], seg_active[b0:b1],
-            fwd_out[b0:b1], cotangent[b0:b1], n_sh, tmin, exact_order, counts,
+        blk = order[b0 : b0 + BUNDLE_BLOCK]
+        drays[blk] = _plain_bundles(
+            payload, dpayload, rays[blk], seg_start[blk], seg_count[blk], seg_active[blk],
+            fwd_out[blk], cotangent[blk], n_sh, tmin, exact_order, counts,
         )
     if work is not None:
         work.update(_read_work(counts))

@@ -39,7 +39,9 @@ from materialrefgs_torch.ops.rasterize.api import RasterizeConfig as TRaster  # 
 from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd  # noqa: E402
 from materialrefgs_torch.ops.tracer.api import TracerConfig as TTracer  # noqa: E402
 from materialrefgs_torch.train import mesh_extract as tme  # noqa: E402
+from materialrefgs_torch.render.shading import camera_rays_world  # noqa: E402
 from materialrefgs_torch.train import trainer as ttr  # noqa: E402
+from materialrefgs_torch.utils.transforms import normalize, reflect  # noqa: E402
 from test_torch_envgs import _jax_texel_grid, _mesh, _models  # noqa: E402
 from test_torch_train import _load_script, _synthetic_scene, _write_blender_scene  # noqa: E402
 
@@ -78,33 +80,50 @@ def _gt(seed):
     return np.clip(rgb + 0.03 * rng.normal(size=rgb.shape), 0, 1).astype(np.float32)
 
 
-def _check_grads_and_update(mu0, mu_t, mu_j, nu_j, p_t, p_j, lrs, count, min_nonzero, what):
+def _check_grads_and_update(mu0, mu_t, mu_j, nu_j, p_t, p_j, lrs, count, min_nonzero, what, skip=()):
     """Each gradient leaf, read from the new first moments as
     (mu_new - b1 mu_old) / (1 - b1), within 2e-3 x its scale + 1e-4; the
-    updated parameters within what that tolerance carries through Adam."""
+    updated parameters within what that tolerance carries through Adam. The
+    gaussians in `skip` (under an env-map kink, _env_kink_gaussians) are left
+    out of both."""
     n_nonzero = 0
     for k in mu_j:
-        gj = (mu_j[k] - 0.9 * mu0[k]) / 0.1
-        gt_ = (mu_t[k] - 0.9 * mu0[k]) / 0.1
+        keep = np.ones(len(mu_j[k]), bool)
+        if k in PARAM_SHAPES:
+            keep[list(skip)] = False
+        gj = (mu_j[k] - 0.9 * mu0[k])[keep] / 0.1
+        gt_ = (mu_t[k] - 0.9 * mu0[k])[keep] / 0.1
         scale = max(float(np.abs(gj).max()), 1e-3)
         np.testing.assert_allclose(gt_, gj, atol=2e-3 * scale + 1e-4, err_msg=f"{what} grad {k}")
         dmu_hat = 0.1 * (2e-3 * scale + 1e-4) / (1 - 0.9**count)
-        sq = np.sqrt(nu_j[k] / (1 - 0.999**count)) + 1e-15
-        err = np.abs(p_t[k] - p_j[k])
+        sq = np.sqrt(nu_j[k][keep] / (1 - 0.999**count)) + 1e-15
+        err = np.abs(p_t[k] - p_j[k])[keep]
         assert np.all(err <= 2 * lrs[k] * dmu_hat / sq + 1e-6), f"{what} param {k}: {err.max()}"
         n_nonzero += bool(np.abs(gj).max() > 0)
     assert n_nonzero >= min_nonzero, (what, n_nonzero)
 
 
-# The ground truth's seed per case. With splat visibility, seed 1 (and seed 3
-# in exact order too) leaves a few gradient elements of one or two gaussians
-# beyond the tolerance while the traces agree on identical inputs: the mark
-# of a hit that flips at a hit-test threshold (a splat's 3-sigma cutoff
-# switches a ~0.011 x opacity alpha on or off) where XLA's fused CPU
-# arithmetic and torch's separate ops round differently. A per-element check
-# needs inputs without such a ray (the JAX package's own tracer-gradient
-# tests allow 2 % of elements for it, tests/test_tracer.py:194).
-GT_SEED = {"mesh_exact": 1, "splat_list": 2}
+def _env_kink_gaussians(tstep, ts, camera, extra, mesh):
+    """(main gaussians, pixel count) of the pixels whose specular env-map
+    lookup lies within 1e-4 texel of a bilinear kink. There the texels the
+    lookup blends change (tu or tv crosses an integer), so d specular /
+    d normal jumps by the texels' second difference while the value is
+    continuous. The two packages' normal maps differ by float32 rounding,
+    which can put such a lookup on either side: at this test's seed, one
+    pixel of the splat-visibility case does, and the gradients of the
+    gaussians under it differ by up to a quarter of themselves (as much with
+    the env trace's rays detached: the tracer plays no part)."""
+    pkg, _ = tstep.render(ts, camera, extra, mesh)
+    nmap = pkg["rend_normal"] / torch.clamp(pkg["rend_alpha"], min=1e-6)
+    rays_d, _ = camera_rays_world(camera)
+    _, u, v = tcm.dir_to_cube_uv(normalize(reflect(-rays_d, nmap)))
+    R = ts.env1.base.shape[1]  # the one specular level at envmap_res 16
+    tex = torch.stack([(u + 1.0) * (R / 2.0) - 0.5, (v + 1.0) * (R / 2.0) - 0.5]).detach()
+    kink = ((tex - torch.round(tex)).abs() < 1e-4).any(0) & (pkg["rend_alpha"][..., 0].detach() > 0)
+    if not bool(kink.any()):
+        return [], 0
+    g = torch.autograd.grad(pkg["rend_normal"][kink].sum(), ts.model.rotation)[0]
+    return torch.nonzero(g.abs().sum(-1) > 0)[:, 0].tolist(), int(kink.sum())
 
 
 @pytest.mark.parametrize("visibility", ["mesh_exact", "splat_list"])
@@ -128,7 +147,7 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
     verts, faces = _mesh()
     jmesh = jmt.build_mesh(verts, faces) if exact else None
     tmesh = tmt.build_mesh(verts, faces, device="cpu") if exact else None
-    gt = _gt(GT_SEED[visibility])
+    gt = _gt(1)
     mask = (np.add.outer((np.arange(H) - H / 2) ** 2, (np.arange(W) - W / 2) ** 2) < 13**2).astype(np.float32)
     lam = jtr.normal_loss_weight_schedule(ITERATION, opt)
     jextra = {"iteration": jnp.float32(ITERATION), "lambda_normal_render_depth": jnp.float32(lam),
@@ -147,6 +166,8 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
               "image_mask": torch.from_numpy(mask), "env_geo_lr_scale": 1.0}
     tstep = ttr.make_train_step("surfel2", topt, tpipe, 3.0, TRaster(pair_capacity=PAIRS), envmap_n_samples=4,
                                 tracer_cfg=TTracer(**tr_kw))
+    skip, n_kink = _env_kink_gaussians(tstep, ts, tc, textra, tmesh)
+    assert n_kink <= 2 and len(skip) <= 16, (n_kink, skip)  # one or two pixels and the gaussians under them
     launches = (trace_fwd.trace_bundles_fwd.launches, trace_bwd.trace_bundles_bwd.launches)
     tmet = tstep(ts, tc, torch.from_numpy(gt), textra, tmesh)
     assert (trace_fwd.trace_bundles_fwd.launches, trace_bwd.trace_bundles_bwd.launches) == launches
@@ -165,7 +186,7 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
     tparams = {k: v.detach().numpy() for k, v in ts.params().items()}
     lrs = ttr.param_lrs(topt, 3.0, ts.step - 1, ts.opacity_lr_scale)
     _check_grads_and_update(mu0, {k: v.numpy() for k, v in ts.adam.mu.items()}, _moments(*js.opt_state.mu),
-                            _moments(*js.opt_state.nu), tparams, jparams, lrs, count, 8, "main")
+                            _moments(*js.opt_state.nu), tparams, jparams, lrs, count, 8, "main", skip)
     # The env-GS model: its own Adam, learning rates at the step after the
     # increment, gradients from the trace only.
     elrs = ttr.param_lrs(topt, 3.0, ts.step)
@@ -175,9 +196,11 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
                             _moments(js.env_gs.params), elrs, int(js.env_gs_opt_state.count), 4, "env")
     g_env = (ts.env_adam.mu["xyz"].numpy() - 0.9 * emu0["xyz"]) / 0.1
     assert np.abs(g_env).max() > 0 and np.abs((ts.env_adam.mu["opacity"].numpy() - 0.9 * emu0["opacity"])).max() > 0
-    for model_t, model_j in ((ts.model, js.model), (ts.env_gs, js.env_gs)):
+    for model_t, model_j, drop in ((ts.model, js.model, skip), (ts.env_gs, js.env_gs, [])):
+        keep = np.ones(model_t.capacity, bool)
+        keep[drop] = False
         for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
-            a, b = getattr(model_t, k).numpy(), np.asarray(getattr(model_j, k))
+            a, b = getattr(model_t, k).numpy()[keep], np.asarray(getattr(model_j, k))[keep]
             np.testing.assert_allclose(a, b, atol=2e-3 * max(float(np.abs(b).max()), 1e-3) + 1e-6, err_msg=k)
     assert float(ts.env_gs.denom.sum()) > 0
 
@@ -216,17 +239,18 @@ def test_extract_mesh_matches_jax():
     np.testing.assert_allclose(dv, jdv, atol=1e-5)
 
 
-def _onset_trainer(cams, images, gt_means, rng, **kw):
+def _onset_trainer(cams, images, gt_means, rng, opt_kw=None, **kw):
     model = tgm.create_from_points(gt_means.astype(np.float32), rng.uniform(size=(len(gt_means), 3)).astype(np.float32),
                                    capacity=128, device="cpu")
-    opt = dataclasses.replace(
-        tcfg.OptimizationParams(), use_perceptual_loss=False, initial=1, init_until_iter=1,
-        volume_render_until_iter=0, indirect_from_iter=2, multi_view_weight_from_iter=10**9,
-        densify_from_iter=10**9, feature_rest_from_iter=100_000, lambda_normal_render_depth=0.0,
-        lambda_dist=0.0, env_densify_interval=2, env_reset_interval=4, env_update_until_iter=100,
-        env_prune_grace=3,
-    )
-    return ttr.Trainer(model, cams, images, opt, tcfg.PipelineParams(), cameras_extent=3.0,
+    opt = dataclasses.replace(tcfg.OptimizationParams(), **{
+        **dict(use_perceptual_loss=False, initial=1, init_until_iter=1, volume_render_until_iter=0,
+               indirect_from_iter=2, multi_view_weight_from_iter=10**9, densify_from_iter=10**9,
+               feature_rest_from_iter=100_000, lambda_normal_render_depth=0.0, lambda_dist=0.0,
+               env_densify_interval=2, env_reset_interval=4, env_update_until_iter=100, env_prune_grace=3),
+        **(opt_kw or {}),
+    })
+    kw.setdefault("cameras_extent", 3.0)
+    return ttr.Trainer(model, cams, images, opt, tcfg.PipelineParams(),
                        raster_cfg=TRaster(pair_capacity=1 << 12), envmap_res=16, **kw)
 
 
@@ -280,6 +304,49 @@ def test_trainer_surfel2_with_mesh_and_list_order():
     assert trainer.mesh is not None and all(n > 0 for _, n, _ in trainer.mesh_log)
     for m in trainer.metrics_log[2:]:
         assert m["mesh_cull_dropped"] == 0 and m["tracer_overflow"] == 0 and np.isfinite(m["loss"])
+
+
+def test_trainer_surfel2_with_main_densify_prune_and_reset():
+    """The main model's densify, prune and opacity reset inside surfel2, while
+    the env-GS model, the traced mesh and the onset's tracer budgets are live:
+    densify every step from the onset (3) clones every gaussian into the free
+    slots (an extent of 100 makes each small enough to clone), the mesh is
+    re-extracted from the densified model at 4, the prune at 5 removes the
+    gaussians whose opacity was pulled below the threshold, the reset at 5
+    drops the rest to 0.01, and the densify at 6 (in the reset's grace)
+    clones into the freed slots; every step traces env pairs within the
+    onset's budgets over the mesh."""
+    cams, images, gt_means, rng = _synthetic_scene(n_cams=2)
+    trainer = _onset_trainer(
+        cams, images, gt_means, rng, mesh_every=4, cameras_extent=100.0,
+        opt_kw=dict(densify_from_iter=2, densify_until_iter=100, densification_interval_when_prop=1,
+                    densify_grad_threshold=0.0, opacity_reset_interval=5, prune_grace=2),
+        tracer_cfg=TTracer(pair_capacity=1 << 12, cluster_pair_capacity=1 << 9, mesh_cull_cap=512,
+                           exact_order=True))
+    trainer.MESH_RESOLUTION = 32
+    trainer.train(4, log_every=1)
+    model, env = trainer.state.model, trainer.state.env_gs
+    n_env_cap = env.capacity
+    assert int(model.n_alive) == model.capacity  # the clones at 3 filled every free slot
+    doomed = torch.nonzero(model.alive)[:8, 0]
+    with torch.no_grad():
+        model.opacity[doomed] = -6.0  # below prune_opacity_threshold
+    trainer.train(1, start_iter=5, log_every=1)
+    assert not bool(model.alive[doomed].any())
+    alive = model.alive
+    assert float(model.get_opacity[alive].detach().max()) <= 0.01 + 1e-6  # the reset at 5
+    trainer.train(1, start_iter=6, log_every=1)
+    assert int(model.n_alive) == model.capacity  # the clones at 6 took the pruned slots
+
+    log = trainer.metrics_log
+    assert [m["stage"] for m in log] == ["initial", "surfel"] + ["surfel2"] * 4
+    assert [it for it, _, _ in trainer.mesh_log] == [3, 4] and all(n > 0 for _, n, _ in trainer.mesh_log)
+    for m in log[2:]:
+        assert m["tracer_overflow"] == 0 and m["mesh_cull_dropped"] == 0 and m["tracer_pairs"] > 0, m
+        assert np.isfinite(m["loss"]) and m["env_n_alive"] > 0 and m["env_grad_opacity"] > 0, m
+    assert env.capacity == n_env_cap and trainer.state.env_adam.count == 4
+    for name, p in list(trainer.state.params().items()) + list(trainer.state.env_params().items()):
+        assert torch.isfinite(p).all(), name
 
 
 def test_train_cli_across_the_surfel2_onset(tmp_path, monkeypatch):
