@@ -56,12 +56,13 @@ Phases (any failure exits non-zero before the result lines are printed):
      redoes a view that overflows them at budgets that fit; counts zeroed
      just before each run, read right after;
  11. for view 0 of each set, the tracer kernel against its plain version at
-     the inputs the eval's path gives it (each launch kind, every bundle),
-     its time (CUDA events), its plain version's (timed in the comparison
-     run) and its bound; the tracer's backward kernel alone at ring view 0's
-     env-trace inputs (time, bound, peak memory); one render_surfel2 view
-     per visibility mode under torch.profiler with its peak device memory,
-     and the mesh tracer's device time;
+     the inputs the eval's path gives it (each launch kind, every bundle,
+     bit for bit), its walks and ranges, its time (CUDA events), its plain
+     version's (timed in the comparison run) and its bound; the tracer's
+     backward kernel at ring view 0's env-trace inputs against its plain
+     version on every bundle (time, bound, plain time, peak memory); one
+     render_surfel2 view per visibility mode under torch.profiler with its
+     peak device memory, and the mesh tracer's device time;
  12. train the refnerf `surfel2` stage at full width through
      scripts/train_torch.py: --start_ply from phase 7's iteration_60 at
      --start_iter 200 (indirect_from_iter at --schedule_scale 0.01),
@@ -74,11 +75,13 @@ Phases (any failure exits non-zero before the result lines are printed):
  13. learning check: 30 `surfel2` steps from the same onset (and phase
      12's onset mesh) with densification, resets and mesh re-extraction off
      must raise the train PSNR by >= 0.3 dB;
- 14. the tracer's backward kernel at one training step's captured inputs
-     against its plain version on every bundle, both times and its bound
-     (counted from the plain version's work); and the Trainer's
-     `surfel2` step (host clock, torch.profiler device-busy share and top
-     kernels, the mesh tracer's device time, peak memory).
+ 14. the tracer's backward and forward kernels at one training step's
+     captured inputs against their plain versions on every bundle (the
+     forward bit for bit), the step's walks and ranges, both kernels' times,
+     their plain versions' and their bounds (counted from the plain
+     versions' work); and the Trainer's `surfel2` step (host clock,
+     torch.profiler device-busy share and top kernels, the mesh tracer's
+     device time, peak memory).
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -273,10 +276,6 @@ def ring_views(np, n, radius=3.2):
     return mats
 
 
-# Trace kernel vs plain: per value |err| <= TRACE_RTOL |ref| + TRACE_ATOL on
-# the float channels; n_contrib and NPROC identical. The kernel repeats the
-# plain version's operations in its order, built without FMA contraction.
-TRACE_RTOL, TRACE_ATOL = 1e-5, 1e-6
 # FP32 operations the tracer needs (csrc/trace_fwd.cu): the hit test per
 # (ray, pair) of a processed chunk: denominator 5, |.| and select 2, t 9,
 # the hit point 9, u and v 10, rho 3, exp and alpha 4, the four tests 3;
@@ -312,33 +311,62 @@ def trace_bwd_bytes(n_sh, pairs, NB):
     return 4 * (2 * (13 + 3 * n_sh) * pairs + NB * 256 * (8 + 16 + 16 + 8) + 3 * NB + 1)
 
 
+def quantile_abs(torch, n_parts, part, q):
+    """The q-quantile of the nonzero |values| of part(0..n_parts-1), exact,
+    without concatenating or sorting them: a bisection on the float32 bit
+    patterns (ordered like the values for x >= 0) of a count per part, as
+    magnitude_quantile would take it. 0 when all are zero."""
+    n = sum(int((part(i) != 0).sum()) for i in range(n_parts))
+    if n == 0:
+        return 0.0
+    rank = int(q * (n - 1))
+    lo, hi = 0, 0x7F800000  # bit patterns of 0 and +inf
+    while lo < hi:
+        mid = (lo + hi) // 2
+        th = torch.tensor(mid, dtype=torch.int32).view(torch.float32).item()
+        le = 0
+        for i in range(n_parts):
+            v = part(i).abs()
+            le += int(((v != 0) & (v <= th)).sum())
+        if le > rank:
+            hi = mid
+        else:
+            lo = mid + 1
+    return torch.tensor(lo, dtype=torch.int32).view(torch.float32).item()
+
+
 def compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh, what):
     """The backward kernel's payload and ray gradients against the plain
     version's, per value within BWD_RTOL x min(|value| + the group's p99
     |value|, the group's max) + BWD_ATOL, for each payload row group and ray
-    origin and direction; prints each group's median, p99 and max |err|.
-    Returns the largest error."""
+    origin and direction; prints each group's median and p99 of the nonzero
+    |err| and its max |err|. Works one payload row at a time (a ring view's
+    rows hold 59M columns). Returns the largest error."""
     nrow = 13 + 3 * n_sh
-    check(bool(torch.isfinite(dp).all()) and bool(torch.isfinite(dr).all()), f"{what}: non-finite gradients")
     check(bool((dp[nrow:] == 0).all()) and bool((dr[..., 6:] == 0).all()), f"{what}: padding not zero")
-    groups = {"center": dp[0:3], "tu": dp[3:6], "tv": dp[6:9], "normal": dp[9:12], "opacity": dp[12:13],
-              "sh": dp[13:nrow], "origin": dr[..., 0:3], "direction": dr[..., 3:6]}
-    refs = {"center": rp[0:3], "tu": rp[3:6], "tv": rp[6:9], "normal": rp[9:12], "opacity": rp[12:13],
-            "sh": rp[13:nrow], "origin": rr[..., 0:3], "direction": rr[..., 3:6]}
+    spans = {"center": (0, 3), "tu": (3, 6), "tv": (6, 9), "normal": (9, 12), "opacity": (12, 13), "sh": (13, nrow)}
+    groups = {k: ([dp[i] for i in range(lo, hi)], [rp[i] for i in range(lo, hi)]) for k, (lo, hi) in spans.items()}
+    groups["origin"] = ([dr[..., 0:3]], [rr[..., 0:3]])
+    groups["direction"] = ([dr[..., 3:6]], [rr[..., 3:6]])
     worst, cells = 0.0, []
-    for name, a in groups.items():
-        b = refs[name]
-        diff = (a - b).abs()
-        pct, biggest = magnitude_quantile(torch, b, BWD_PCT), float(b.abs().max())
-        tol = BWD_RTOL * torch.clamp(b.abs() + pct, max=biggest) + BWD_ATOL
-        ratio = float((diff / tol).max())
-        nz = diff[(a != 0) | (b != 0)]
-        med = float(nz.median()) if nz.numel() else 0.0
-        p99 = magnitude_quantile(torch, nz, 0.99)
-        cells.append(f"{name} {med:.1e}/{p99:.1e}/{float(diff.max()):.1e} (err/tol {ratio:.2e})")
+    for name, (outs, refs) in groups.items():
+        check(all(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()) for a, b in zip(outs, refs)),
+              f"{what}: non-finite {name} gradients")
+        pct = quantile_abs(torch, len(refs), lambda i: refs[i], BWD_PCT)
+        biggest = max(float(b.abs().max()) for b in refs)
+        ratio, err = 0.0, 0.0
+        for a, b in zip(outs, refs):
+            diff = (a - b).abs()
+            tol = BWD_RTOL * torch.clamp(b.abs() + pct, max=biggest) + BWD_ATOL
+            ratio = max(ratio, float((diff / tol).max()))
+            err = max(err, float(diff.max()))
+            del diff, tol
+        diff_of = lambda i: outs[i] - refs[i]  # noqa: E731
+        med, p99 = (quantile_abs(torch, len(refs), diff_of, x) for x in (0.5, 0.99))
+        cells.append(f"{name} {med:.1e}/{p99:.1e}/{err:.1e} (err/tol {ratio:.2e})")
         check(biggest > 0, f"{what}: the {name} gradient is zero everywhere")
         check(ratio <= 1.0, f"{what}: the {name} gradient is outside the per-value tolerance")
-        worst = max(worst, float(diff.max()))
+        worst = max(worst, err)
     print(f"    {what}: median/p99/max |err| per group: " + ", ".join(cells))
     return worst
 
@@ -350,9 +378,10 @@ def trace_flops(work, n_sh, exact):
 
 
 def compare_trace(np, out, ref, what):
-    """All 16 output channels of the tracer kernel against its plain
-    version: max and 99th-percentile |err| per channel; raises past the
-    tolerance or on any integer-channel mismatch. Returns the largest error."""
+    """All 16 output channels of the tracer kernels against their plain
+    version, bit for bit (the kernels repeat its operations in its order,
+    built without FMA contraction): max and 99th-percentile |err| per
+    channel; raises on any difference. Returns the largest error."""
     from materialrefgs_torch.ops.tracer import layout as tl
 
     names = ["r", "g", "b", "depth", "nx", "ny", "nz", "final_T", "n_contrib", "SUMLG", "NPROC"]
@@ -362,14 +391,10 @@ def compare_trace(np, out, ref, what):
     cells = []
     for c, name in enumerate(names):
         err = np.abs(out[..., c] - ref[..., c])
-        if c in (tl.OUT_NCONTRIB, tl.OUT_NPROC):
-            n_bad = int((err != 0).sum())
-            cells.append(f"{name} mismatches {n_bad}")
-            check(n_bad == 0, f"{what}: {name} differs on {n_bad} rays")
-            continue
-        ok = bool(np.all(err <= TRACE_RTOL * np.abs(ref[..., c]) + TRACE_ATOL))
-        cells.append(f"{name} {float(err.max()):.2e}/{float(np.quantile(err, 0.99)):.2e}{'' if ok else ' FAIL'}")
-        check(ok, f"{what}: channel {name} outside tolerance")
+        n_bad = int((out[..., c] != ref[..., c]).sum())
+        cells.append(f"{name} {float(err.max()):.2e}/{float(np.quantile(err, 0.99)):.2e}"
+                     + (f" ({n_bad} rays differ)" if n_bad else ""))
+        check(n_bad == 0, f"{what}: channel {name} differs on {n_bad} rays")
         worst = max(worst, float(err.max()))
     print(f"    {what}: max/p99 |err| per channel: " + ", ".join(cells))
     return worst
@@ -444,6 +469,27 @@ def env_cloud_arrays(np, PARAM_SHAPES, rgb_to_sh, torch, P=P_SPLATS, seed=1):
     return arrays
 
 
+def walk_histogram(torch, seg_count, nproc, cols, what):
+    """The work of one tracer launch as the range split sees it: walks
+    (processed chunks per bundle), chunks, ranges of RANGE_CHUNKS chunks,
+    blocks launched, and the pairs in chunks past a bundle's NPROC (launch
+    (a) may test them, up to its early exit)."""
+    from materialrefgs_torch.ops.tracer.ranges import RANGE_CHUNKS, max_ranges
+
+    R = RANGE_CHUNKS
+    count = seg_count.long()
+    n_chunks = (count + 127) // 128
+    walk = nproc.long()
+    edges = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 1 << 30]
+    hist = {f"{a}-{b - 1}": int(((walk >= a) & (walk < b)).sum()) for a, b in zip(edges, edges[1:])}
+    past = torch.clamp(count - walk * 128, min=0)
+    print(f"    {what}: walks: longest {int(walk.max())} chunks, {int(walk.sum())} processed of {int(n_chunks.sum())} "
+          f"chunks ({int((count > 0).sum())} bundles with pairs); ranges of R={R}: {int(((walk + R - 1) // R).sum())} "
+          f"below NPROC, {int(((n_chunks + R - 1) // R).sum())} in all, "
+          f"{max_ranges(cols, count.numel(), R)} blocks launched; pairs in chunks past NPROC "
+          f"{int(past.sum())}; walks by length: {hist}")
+
+
 def capture_trace(torch, tracer_api, fn):
     """Run fn() under no_grad and return the (args, kwargs) of every tracer
     kernel call it makes, the payload cut to the columns its segments use."""
@@ -452,7 +498,8 @@ def capture_trace(torch, tracer_api, fn):
 
     def wrapper(payload, rays, seg_start, seg_count, **kw):
         used = payload[:, : int(seg_start[-1]) + 128].clone()
-        captured.append(((used, rays.clone(), seg_start.clone(), seg_count.clone()), dict(kw)))
+        kw_ = {k: v for k, v in kw.items() if k != "residual"}  # the autograd residual's buffer
+        captured.append(((used, rays.clone(), seg_start.clone(), seg_count.clone()), kw_))
         return real(payload, rays, seg_start, seg_count, **kw)
 
     tracer_api.trace_bundles_fwd = wrapper
@@ -1183,6 +1230,7 @@ def main() -> int:
         p_ms = cuda_ms(torch, lambda: res_t.update(
             ref=trace_fwd.trace_bundles_fwd_plain(*targs, **tkw, work=work_t)), 1)
         err = compare_trace(np, out_t.cpu().numpy(), res_t.pop("ref").cpu().numpy(), what)
+        walk_histogram(torch, targs[3], out_t[:, 0, 10], targs[0].shape[1], what)
         for _ in range(3):
             trace_fn(*targs, **tkw)
         k_ms = cuda_ms(torch, lambda: trace_fn(*targs, **tkw), 10)
@@ -1209,10 +1257,11 @@ def main() -> int:
     bwd_ring = {}
 
     def time_trace_bwd(targs, tkw, out_t, work_t):
-        """The backward kernel alone at this launch's inputs (exact order:
-        the walk covers the NPROC chunks the forward processed), a cotangent
-        from a seed; its bound from the forward's work counts, which count
-        the same walked chunks, hits and composited hits."""
+        """The backward kernel at this launch's inputs (exact order: the walk
+        covers the NPROC chunks the forward processed) with a cotangent from
+        a seed, against its plain version on every bundle (timed in its
+        comparison run); its bound from the forward's work counts, which
+        count the same walked chunks, hits and composited hits."""
         n_sh = tkw["n_sh"]
         active = torch.amax(out_t[..., 10], dim=1).to(torch.int32) * 128
         cot = torch.zeros_like(out_t)
@@ -1223,19 +1272,25 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         dp, dr = trace_bwd_fn(*bargs, **tkw)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(dr).all()) and bool(torch.isfinite(dp).all()), "ring view 0 backward: non-finite")
-        del dp, dr
-        ms_ = cuda_ms(torch, lambda: trace_bwd_fn(*bargs, **tkw), 3)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        res_b = {}
+        p_ms = cuda_ms(torch, lambda: res_b.update(ref=trace_bwd.trace_bundles_bwd_plain(*bargs, **tkw)), 1)
+        rp, rr = res_b.pop("ref")
+        err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh, f"ring view 0 backward, every bundle (n_sh={n_sh}, "
+                                f"exact order, {int(active.max()) // 128} chunks in the longest walk)")
+        del dp, dr, rp, rr
+        ms_ = cuda_ms(torch, lambda: trace_bwd_fn(*bargs, **tkw), 3)
         pairs_read = work_t["hit_tests"] // 256
         b_bytes = trace_bwd_bytes(n_sh, pairs_read, targs[1].shape[0])
         b_flops = trace_bwd_flops(work_t, n_sh, True)
         tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
-        bwd_ring.update(ms=ms_, bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations", peak=peak)
+        bwd_ring.update(ms=ms_, bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations", peak=peak,
+                        plain_ms=p_ms, err=err)
         print(f"    backward kernel at these inputs (n_sh={n_sh}, exact, {int(active.max()) // 128} chunks in the "
               f"longest walk): {ms_:.3f} ms; bound {max(tb_, to_):.4f} ms (by {bwd_ring['by']}: "
               f"{b_bytes / 1e6:.1f} MB -> {tb_:.4f} ms, {b_flops / 1e9:.3f} GFLOP -> {to_:.4f} ms); kernel at "
-              f"{100 * max(tb_, to_) / ms_:.1f} % of it; peak device memory {peak:.2f} GiB; no plain run at this size")
+              f"{100 * max(tb_, to_) / ms_:.1f} % of it; plain version {p_ms:.1f} ms (timed in its comparison "
+              f"run); peak device memory of the kernel's call {peak:.2f} GiB")
 
     for vset, (_, cams) in view_sets.items():
         # The budgets the eval ended at for this view set.
@@ -1476,7 +1531,35 @@ def main() -> int:
           f"{swork['contribs']} composited, {swork['sort_compares']:.0f} sort compares); kernel at "
           f"{100 * s_bound / s_ms:.1f} % of it")
     print("  tracer bwd library call: none computes this function")
-    del step_cap, sargs
+
+    # The forward kernel at the same step's inputs: against its plain version
+    # on every bundle, its time, the plain version's (timed in its comparison
+    # run) and its bound from the plain version's work; the step's walks.
+    fargs, fkw = sargs[:4], {k: skw[k] for k in ("n_sh", "tmin", "exact_order")}
+    fo = trace_fn(*fargs, **fkw)
+    torch.cuda.synchronize()
+    check(torch.equal(fo, sargs[5]), "the forward kernel gave the step another output on the same inputs")
+    fwork, fres = {}, {}
+    f_plain_ms = cuda_ms(torch, lambda: fres.update(ref=trace_fwd.trace_bundles_fwd_plain(*fargs, **fkw, work=fwork)), 1)
+    f_err = compare_trace(np, fo.cpu().numpy(), fres.pop("ref").cpu().numpy(),
+                          f"training step {it_next} forward, every bundle (n_sh={n_sh_s})")
+    walk_histogram(torch, sargs[3], fo[:, 0, 10], sargs[0].shape[1], f"training step {it_next}")
+    del fo
+    for _ in range(3):
+        trace_fn(*fargs, **fkw)
+    f_ms = cuda_ms(torch, lambda: trace_fn(*fargs, **fkw), 10)
+    f_pairs = fwork["hit_tests"] // 256
+    f_bytes = 4 * ((13 + 3 * n_sh_s) * f_pairs + NBs * 256 * 8 + NBs * 256 * 16 + 2 * NBs + 1)
+    f_flops = trace_flops(fwork, n_sh_s, skw["exact_order"])
+    tb_, to_ = f_bytes / PEAK_BYTES_PER_S * 1e3, f_flops / PEAK_FP32_FLOPS * 1e3
+    f_bound, f_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
+    print(f"  tracer fwd at the step's inputs: kernel ms {f_ms:.4f}; plain version ms {f_plain_ms:.1f} (timed in "
+          f"its comparison run)")
+    print(f"  tracer fwd bound ms: {f_bound:.4f} (by {f_by}: {f_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
+          f"{f_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {fwork['hit_tests']} hit tests, {fwork['hits']} hits, "
+          f"{fwork['contribs']} composited, {fwork['sort_compares']:.0f} sort compares); kernel at "
+          f"{100 * f_bound / f_ms:.1f} % of it")
+    del step_cap, sargs, fargs
 
     # Host time per step: the learning check's steps (the Trainer's log
     # stamps each step's end), without its first.
@@ -1540,12 +1623,12 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:348",
-            "launches": trace_launches,
-            "max_abs_err": max(t["err"] for t in trace_times.values()),
-            "ms": trace_times[TRACE_ROW]["ms"],
-            "plain_ms": trace_times[TRACE_ROW]["plain_ms"],
-            "bound_ms": trace_times[TRACE_ROW]["bound"],
-            "bound_by": trace_times[TRACE_ROW]["by"],
+            "launches": s2_launches["trace_bundles_fwd"],
+            "max_abs_err": max([t["err"] for t in trace_times.values()] + [f_err]),
+            "ms": f_ms,
+            "plain_ms": f_plain_ms,
+            "bound_ms": f_bound,
+            "bound_by": f_by,
             "library_ms": None,
         },
         {
@@ -1554,7 +1637,7 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/trace_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:586",
             "launches": s2_launches["trace_bundles_bwd"],
-            "max_abs_err": max(tbwd_errs + [s_bwd_err]),
+            "max_abs_err": max(tbwd_errs + [s_bwd_err] + ([bwd_ring["err"]] if bwd_ring else [])),
             "ms": s_ms,
             "plain_ms": s_plain_ms,
             "bound_ms": s_bound,
@@ -1566,9 +1649,14 @@ def main() -> int:
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
           + f"); surfel2 training path launches: {s2_launches}")
+    ring = trace_times[TRACE_ROW]
+    print(f"tracer forward at ring view 0's env trace: {ring['ms']:.3f} ms, bound {ring['bound']:.4f} ms "
+          f"({ring['by']}), plain {ring['plain_ms']:.1f} ms; at the surfel2 step: {f_ms:.4f} ms, bound "
+          f"{f_bound:.4f} ms, plain {f_plain_ms:.1f} ms")
     if bwd_ring:
         print(f"tracer backward at ring view 0's env trace: {bwd_ring['ms']:.3f} ms, bound {bwd_ring['bound']:.4f} ms "
-              f"({bwd_ring['by']}), peak {bwd_ring['peak']:.2f} GiB")
+              f"({bwd_ring['by']}), plain {bwd_ring['plain_ms']:.1f} ms, peak {bwd_ring['peak']:.2f} GiB; at the "
+              f"surfel2 step: {s_ms:.4f} ms, bound {s_bound:.4f} ms, plain {s_plain_ms:.1f} ms")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

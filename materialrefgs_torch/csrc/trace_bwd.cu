@@ -1,13 +1,13 @@
 // Bundle splat tracer backward, CUDA C++ for sm_90a.
 //
 // Replaces materialrefgs_tpu/ops/tracer/pallas_kernels.py:trace_bundles_bwd
-// (the Pallas `_bwd_kernel`). For every bundle of 256 rays it walks the chunks
-// the forward processed (csrc/trace_fwd.cu) in reverse, from the segment's
-// active end (seg_active: NPROC x 128 in exact order, the bundle's largest
-// n_contrib in list order), and returns the gradient of every payload row of
-// every walked pair (center, tu/su, tv/sv, normal, opacity, raw SH) and of
-// every ray's origin and direction, for the cotangent of the forward's rgb,
-// depth, normal and final_T outputs. Per (ray, pair):
+// (the Pallas `_bwd_kernel`). It walks the chunks the forward processed
+// (csrc/trace_fwd.cu) in reverse, up to each segment's active end
+// (seg_active: NPROC x 128 in exact order, the bundle's largest n_contrib in
+// list order), and returns the gradient of every payload row of every walked
+// pair (center, tu/su, tv/sv, normal, opacity, raw SH) and of every ray's
+// origin and direction, for the cotangent of the forward's rgb, depth,
+// normal and final_T outputs. Per (ray, pair):
 //   dL/dalpha = T_i G_i - (sum over later hits of G w) / (1 - alpha_i)
 //               - final_T / (1 - alpha_i) dL/dfinal_T,
 // G_i = dL/dw_i = <dRGB, color> + t dDepth + flip <n, dNormal>; then the chain
@@ -17,46 +17,65 @@
 // direction also through the SH basis Jacobian (n_sh > 1). The alpha clamp
 // passes its gradient, as in the JAX kernel.
 //
-// Design: one block of 256 threads per bundle, one thread per ray. Each chunk
-// of the segment (walked in reverse) is staged in shared memory, (13 + 3 n_sh)
-// rows x 128 pairs (31 KB at n_sh = 16). Two passes per chunk:
-//  A. Each thread rebuilds its ray's weights in its own order, back to front,
-//     carrying the suffix sums of log1p(-alpha) and of G w from the later
-//     chunks. List order: the lanes in reverse, up to the ray's n_contrib,
-//     T_i = exp(log final_T - inclusive suffix). Exact order: the ray's hits
-//     insertion-sorted by the forward's 64-bit keys (the hit distance's bits,
-//     then the lane), walked in reverse with prefix = SUMLG - suffix - lg and
-//     the T-stop inclusion re-derived. w_i and dL/dalpha_i of each composited
-//     hit go to a per-thread array (local memory) and a 128-bit mask.
-//  B. The lanes in order, all threads together: a lane no ray composited is
-//     skipped by the whole block (__syncthreads_or); otherwise each thread
-//     computes its (13 + 3 n_sh) contributions, each is summed over the warp
-//     with xor shuffles and over the 8 warps in a fixed order (deterministic,
-//     as csrc/rasterize_bwd.cu), and the lane's column of gradient sums
-//     replaces its payload column in shared memory (no later lane reads it).
-//     A chunk's columns belong to this bundle alone, so the block writes them
-//     to dpayload directly: no atomics. The ray's origin and direction
-//     gradients stay in registers and are written once.
+// Design: the walk is cut into the forward's ranges of at most R chunks
+// (ops/tracer/ranges.py; R = 8 on the main path), one block of 256 threads
+// (one per ray) per range.
+// The forward's residual gives each chunk's end log T (Lend) and each ray's
+// hit mask: the backward visits the hits alone (a chunk, or a half chunk, no
+// ray of the block hits is skipped; its dpayload columns stay zero), and
+// within a chunk walked back to front prefix_i = Lend - suffix - lg_i (the JAX
+// formula prefix = SUMLG - suffix - lg with the later chunks' totals folded
+// into Lend), in each ray's order: its lanes in reverse (list order; a hit
+// carries a gradient up to the ray's n_contrib), or its hits by the
+// forward's 64-bit (t bits, lane) keys, insertion-sorted per thread in
+// shared memory (a local-memory list past KEYS_SMEM hits), with the T-stop
+// inclusion re-derived (exact order). Three launches:
+//  (b') every range but a bundle's first computes its own sum of G w over
+//       its included hits (the walk alone);
+//  (c') every range in parallel starts from carry_gw, the sum of the later
+//       ranges' (b') sums taken from the last range back, and walks its
+//       chunks in reverse. Per chunk, for each half of 64 lanes: pass A, the
+//       ray's walk, writes w and dL/dalpha of its included hits in the half
+//       to shared memory ([ray][lane], rows padded to 65 floats: no bank
+//       conflicts either way) and adds the ray's own origin, direction and
+//       SH-basis terms in registers; pass B, transposed: thread (lane, ray
+//       quarter) loops over its 64 rays in order and, for each included
+//       (ray, lane), recomputes the hit geometry from the staged rays and
+//       payload and adds the 13 geometry rows and, per color channel, the
+//       3 n_sh SH rows Y_k [raw_c > 0] dRGB_c w (a register-tiled FP32
+//       product over the rays, skipping the rays that did not composite the
+//       lane); the four quarters' sums are added in order and the block
+//       writes the lane's column of dpayload. A range's chunks belong to it
+//       alone: no atomics, no cross-block order. The ray gradients are
+//       per-(range, ray) partials;
+//  (d') one block per bundle adds its ranges' ray partials in range order.
+// When the forward's residual is not given, launches (a) and (b) of
+// csrc/trace_fwd.cu recompute it first (ops/tracer/trace_bwd.py).
 //
-// What bounds it on the H100: per (ray, pair) of a walked chunk the hit test
-// (~45 FP32 operations and one expf) runs in both passes; a hit adds its color
-// (3 (2 n_sh + 1)), G (14) and the walk's log1pf/expf/division; a composited
-// hit the chain rule (~90) and its SH rows (6 n_sh), and 13 + 3 n_sh warp
-// reductions. The payload is read once and dpayload written once per bundle,
-// (13 + 3 n_sh) x 4 bytes per pair each, shared by 256 rays: FP32 and shuffle
-// work bound it, not bytes (chip_smoke.py counts the bound from the plain
-// version's outcomes on the same inputs).
+// What bounds it on the H100: per hit its geometry (~45 FP32 operations and
+// one expf), color 3 (2 n_sh + 1), G (14) and the walk's log1pf/expf/
+// division; a composited hit the chain rule (~90), its SH rows (6 n_sh) and
+// one add into each of the 13 + 3 n_sh row sums. The walk runs in (b'), in
+// (c') once per half in exact order (the sorted walk spans both halves), and
+// pass B recomputes a composited hit's geometry; the forward's launch (a)
+// ran the hit test of every (ray, pair), which the bound counts here too. The payload is read once and dpayload written once per range,
+// (13 + 3 n_sh) x 4 bytes per pair each, shared by 256 rays: FP32 work bounds
+// it, not bytes (chip_smoke.py counts the bound from the plain version's
+// outcomes on the same inputs). Shared memory (227 KB at n_sh = 16: the
+// staged chunk, the two 64-lane buffers, the staged rays, the sort keys)
+// holds (c') to one block per SM; ptxas gives it ~245 registers at n_sh = 16
+// (no spills) and (b') 64.
 //
-// Numerics follow the plain torch version (trace_bwd.trace_bundles_bwd_plain)
-// operation for operation, built with -fmad=false; sums over a bundle's rays
-// and a chunk's lanes are taken in another order than torch.sum's.
+// Numerics follow the plain torch version (trace_bwd.trace_bundles_bwd_plain,
+// which walks the same ranges) operation for operation in the walk, built
+// with -fmad=false; sums over a bundle's rays and a chunk's lanes are taken
+// in another order than torch.sum's.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int NRAY = 256;  // threads per block, rays per bundle
-constexpr int NWARP = NRAY / 32;
 constexpr int K = 128;     // pairs per chunk
 constexpr int C_OUT = 16;
 
@@ -160,17 +179,23 @@ __device__ __forceinline__ void sh_grad_dot(float x, float y, float z, const flo
   }
 }
 
-// The hit geometry of lane j of the staged chunk (pallas_kernels.py:_geom),
-// with the forward kernel's operations in its order.
+constexpr int KEYS_SMEM = 16;  // exact-order sort keys per ray kept in shared memory
+constexpr int HALF = 64;       // lanes per pass-A/pass-B half chunk
+constexpr int WPAD = HALF + 1; // padded row of the [ray][lane] buffers
+constexpr int NDR = 6;         // per-(range, ray) ray partials: origin 3, direction 3
+
+// The hit geometry of lane j of the staged chunk s (row-major, K floats a
+// row; pallas_kernels.py:_geom), with the forward kernel's operations in its
+// order.
 struct Geo {
   bool ok;
   float t, alpha, denom, den_s, G, u, v, qx, qy, qz, pox, poy, poz;
 };
 
-__device__ __forceinline__ Geo geometry(const float (*sh)[K], int j, float ox, float oy, float oz,
-                                        float dx, float dy, float dz, float tmin) {
-  const float px = sh[ROW_P][j], py = sh[ROW_P + 1][j], pz = sh[ROW_P + 2][j];
-  const float nx = sh[ROW_N][j], ny = sh[ROW_N + 1][j], nz = sh[ROW_N + 2][j];
+__device__ __forceinline__ Geo geometry(const float* s, int j, float ox, float oy, float oz, float dx,
+                                        float dy, float dz, float tmin) {
+  const float px = s[ROW_P * K + j], py = s[(ROW_P + 1) * K + j], pz = s[(ROW_P + 2) * K + j];
+  const float nx = s[ROW_N * K + j], ny = s[(ROW_N + 1) * K + j], nz = s[(ROW_N + 2) * K + j];
   Geo g;
   g.denom = dx * nx + dy * ny + dz * nz;
   const bool den_ok = fabsf(g.denom) > 1e-9f;
@@ -182,35 +207,22 @@ __device__ __forceinline__ Geo geometry(const float (*sh)[K], int j, float ox, f
   g.qx = ox + g.t * dx - px;
   g.qy = oy + g.t * dy - py;
   g.qz = oz + g.t * dz - pz;
-  g.u = g.qx * sh[ROW_TU][j] + g.qy * sh[ROW_TU + 1][j] + g.qz * sh[ROW_TU + 2][j];
-  g.v = g.qx * sh[ROW_TV][j] + g.qy * sh[ROW_TV + 1][j] + g.qz * sh[ROW_TV + 2][j];
+  g.u = g.qx * s[ROW_TU * K + j] + g.qy * s[(ROW_TU + 1) * K + j] + g.qz * s[(ROW_TU + 2) * K + j];
+  g.v = g.qx * s[ROW_TV * K + j] + g.qy * s[(ROW_TV + 1) * K + j] + g.qz * s[(ROW_TV + 2) * K + j];
   const float rho = g.u * g.u + g.v * g.v;
   g.G = expf(-0.5f * rho);
-  g.alpha = clamp_max(sh[ROW_OPA][j] * g.G, ALPHA_MAX);
+  g.alpha = clamp_max(s[ROW_OPA * K + j] * g.G, ALPHA_MAX);
   g.ok = den_ok && g.t >= tmin && rho <= RHO_CUTOFF && g.alpha >= ALPHA_MIN;
   return g;
 }
 
-// The raw (pre-clamp) color of lane j at the ray's basis, +0.5 included.
+// The raw (pre-clamp) color of lane j at basis Y (stride ys), +0.5 included.
 template <int NSH>
-__device__ __forceinline__ float raw_color(const float (*sh)[K], int c, int j, const float* Y) {
-  float raw = Y[0] * sh[ROW_SH + c * NSH][j];
+__device__ __forceinline__ float raw_color(const float* s, int c, int j, const float* Y, int ys) {
+  float raw = Y[0] * s[(ROW_SH + c * NSH) * K + j];
 #pragma unroll
-  for (int k = 1; k < NSH; ++k) raw = raw + Y[k] * sh[ROW_SH + c * NSH + k][j];
+  for (int k = 1; k < NSH; ++k) raw = raw + Y[k * ys] * s[(ROW_SH + c * NSH + k) * K + j];
   return raw + 0.5f;
-}
-
-// G_i = dL/dw_i of lane j.
-template <int NSH>
-__device__ __forceinline__ float dl_dw(const float (*sh)[K], int j, const Geo& g, const float* Y,
-                                       const float* dRGB, float dDep, const float* dN) {
-  float gw = dRGB[0] * clamp_min(raw_color<NSH>(sh, 0, j, Y), 0.0f) +
-             dRGB[1] * clamp_min(raw_color<NSH>(sh, 1, j, Y), 0.0f) +
-             dRGB[2] * clamp_min(raw_color<NSH>(sh, 2, j, Y), 0.0f);
-  gw = gw + g.t * dDep;
-  const float flip = g.denom > 0.0f ? -1.0f : 1.0f;
-  gw = gw + flip * (sh[ROW_N][j] * dN[0] + sh[ROW_N + 1][j] * dN[1] + sh[ROW_N + 2][j] * dN[2]);
-  return gw;
 }
 
 __device__ __forceinline__ unsigned int order_bits(float f) {
@@ -218,280 +230,514 @@ __device__ __forceinline__ unsigned int order_bits(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
+// Sort keys of one thread: KEYS_SMEM in shared memory (stride NRAY), moved
+// to a local-memory list when a chunk gives the ray more hits.
+struct KeyList {
+  unsigned long long* base;
+  int stride;
+  __device__ __forceinline__ unsigned long long& operator[](int i) { return base[i * stride]; }
+};
+
+__device__ __forceinline__ void insert_key(KeyList& kl, unsigned long long* spill, int& n_hits,
+                                           unsigned long long key) {
+  if (n_hits == KEYS_SMEM && kl.stride != 1) {
+    for (int i = 0; i < KEYS_SMEM; ++i) spill[i] = kl[i];
+    kl.base = spill;
+    kl.stride = 1;
+  }
+  // Lanes arrive in increasing order: a tie stays behind the earlier lane.
+  int i = n_hits++;
+  while (i > 0 && kl[i - 1] > key) {
+    kl[i] = kl[i - 1];
+    --i;
+  }
+  kl[i] = key;
 }
 
+// One ray's forward outputs and cotangent.
+struct RayCot {
+  float ox, oy, oz, dx, dy, dz, inv, xu, yu, zu;
+  float final_T, n_contrib, dTfin, dDep;
+  float dRGB[3], dN[3];
+};
+
+__device__ __forceinline__ RayCot load_ray(const float* __restrict__ rays, const float* __restrict__ fwd,
+                                           const float* __restrict__ cot, int b, int r) {
+  RayCot q;
+  const long long i = (long long)b * NRAY + r;
+  const float* ray = rays + i * 8;
+  q.ox = ray[0], q.oy = ray[1], q.oz = ray[2];
+  q.dx = ray[3], q.dy = ray[4], q.dz = ray[5];
+  q.inv = 1.0f / sqrtf(clamp_min(q.dx * q.dx + q.dy * q.dy + q.dz * q.dz, 1e-24f));
+  q.xu = q.dx * q.inv, q.yu = q.dy * q.inv, q.zu = q.dz * q.inv;
+  const float* f = fwd + i * C_OUT;
+  q.final_T = f[7], q.n_contrib = f[8];
+  const float* g = cot + i * C_OUT;
+  q.dRGB[0] = g[0], q.dRGB[1] = g[1], q.dRGB[2] = g[2];
+  q.dDep = g[3];
+  q.dN[0] = g[4], q.dN[1] = g[5], q.dN[2] = g[6];
+  q.dTfin = g[7];
+  return q;
+}
+
+// The bundle's walk bound in chunks: seg_active, the segment, NPROC.
+__device__ __forceinline__ int active_chunks(const int* __restrict__ seg_count, const int* __restrict__ seg_active,
+                                             const float* __restrict__ fwd, int b) {
+  const int n_chunks = (seg_count[b] + K - 1) / K;
+  const int nproc = (int)fwd[(long long)b * NRAY * C_OUT + 10];
+  return min(min((seg_active[b] + K - 1) / K, n_chunks), nproc);
+}
+
+template <int NROW>
+__device__ __forceinline__ void stage_chunk(float* s, const float* __restrict__ payload, long long ld,
+                                            long long off) {
+  for (int i = threadIdx.x; i < NROW * K; i += NRAY) {
+    const int row = i / K, lane = i % K;
+    s[row * K + lane] = payload[(long long)row * ld + off + lane];
+  }
+}
+
+constexpr int NRES = 5;  // residual rows per chunk: end log T (float bits), 4 hit-mask words
+
+// Index of residual row `row` of global chunk g for ray r.
+__device__ __forceinline__ long long res_at(long long g, int row, int r) { return (g * NRES + row) * NRAY + r; }
+
+// One included hit of the ray's walk (back to front) at lane j: its w and
+// dL/dalpha; s_lg is the suffix of log1p(-alpha) inside the chunk, sg the
+// suffix of G w over later included hits. visit(j, g, raw, w, dalpha) runs
+// for every included hit.
+template <int NSH, bool EXACT, class Visit>
+__device__ __forceinline__ void walk_hit(const float* s, int c, int j, const RayCot& q, const float* Y, float Lend,
+                                         float tmin, float& s_lg, float& sg, Visit& visit) {
+  const Geo g = geometry(s, j, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmin);
+  const float a = g.alpha;
+  const float lg = log1pf(-a);
+  const float prefix_excl = Lend - s_lg - lg;
+  const bool inc = EXACT ? prefix_excl + lg >= LOG_T_STOP : (float)(c * K + j + 1) <= q.n_contrib;
+  if (inc) {
+    float raw[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) raw[ch] = raw_color<NSH>(s, ch, j, Y, 1);
+    float Gw = q.dRGB[0] * clamp_min(raw[0], 0.0f) + q.dRGB[1] * clamp_min(raw[1], 0.0f) +
+               q.dRGB[2] * clamp_min(raw[2], 0.0f);
+    Gw = Gw + g.t * q.dDep;
+    const float flip = g.denom > 0.0f ? -1.0f : 1.0f;
+    Gw = Gw + flip * (s[ROW_N * K + j] * q.dN[0] + s[(ROW_N + 1) * K + j] * q.dN[1] +
+                      s[(ROW_N + 2) * K + j] * q.dN[2]);
+    const float T_i = expf(clamp_max(prefix_excl, 0.0f));
+    const float w = a * T_i;
+    const float one_m = 1.0f - a;
+    const float dalpha = T_i * Gw - sg / one_m - (q.final_T / one_m) * q.dTfin;
+    visit(j, g, raw, w, dalpha);
+    sg = sg + Gw * w;
+  }
+  s_lg = s_lg + lg;
+}
+
+// List order: the ray's hits among lanes [base, base + 64) (mask words lo,
+// hi) in reverse lane order.
+template <int NSH, class Visit>
+__device__ __forceinline__ void walk_lanes(const float* s, int c, unsigned lo, unsigned hi, int base,
+                                           const RayCot& q, const float* Y, float Lend, float tmin, float& s_lg,
+                                           float& sg, Visit& visit) {
+  for (unsigned bits = hi; bits;) {
+    const int bit = 31 - __clz(bits);
+    bits &= ~(1u << bit);
+    walk_hit<NSH, false>(s, c, base + 32 + bit, q, Y, Lend, tmin, s_lg, sg, visit);
+  }
+  for (unsigned bits = lo; bits;) {
+    const int bit = 31 - __clz(bits);
+    bits &= ~(1u << bit);
+    walk_hit<NSH, false>(s, c, base + bit, q, Y, Lend, tmin, s_lg, sg, visit);
+  }
+}
+
+// Exact order: the ray's sorted hits, back to front.
+template <int NSH, class Visit>
+__device__ __forceinline__ void walk_sorted(const float* s, int c, KeyList& kl, int n_hits, const RayCot& q,
+                                            const float* Y, float Lend, float tmin, float& s_lg, float& sg,
+                                            Visit& visit) {
+  for (int i = n_hits - 1; i >= 0; --i)
+    walk_hit<NSH, true>(s, c, (int)(kl[i] & 0xffffffffull), q, Y, Lend, tmin, s_lg, sg, visit);
+}
+
+// Exact order: the ray's hits of the staged chunk (the forward's hit masks),
+// insertion-sorted by the forward's keys.
+__device__ __forceinline__ int sort_hits(const float* s, const unsigned* m, const RayCot& q, float tmin,
+                                         KeyList& kl, unsigned long long* spill) {
+  int n_hits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    for (unsigned bits = m[i]; bits; bits &= bits - 1u) {
+      const int j = i * 32 + __ffs(bits) - 1;
+      const Geo g = geometry(s, j, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmin);
+      insert_key(kl, spill, n_hits, ((unsigned long long)order_bits(g.t) << 32) | (unsigned)j);
+    }
+  }
+  return n_hits;
+}
+
+// The ray's hit masks of global chunk g; true when a ray of the block has a hit.
+__device__ __forceinline__ bool load_masks(const int* __restrict__ res, long long g, int r, unsigned* m) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = (unsigned)res[res_at(g, 1 + i, r)];
+  return __syncthreads_or((m[0] | m[1] | m[2] | m[3]) != 0u);
+}
+
+struct RangeWork {
+  int b, k, c0, c1, count;  // bundle, range index in it, walked chunks [c0, c1)
+  long long start;          // the segment's first column
+};
+
+__device__ __forceinline__ bool range_of(const int* __restrict__ rb, const int* __restrict__ rc0,
+                                         const int* __restrict__ range_off, const int* __restrict__ seg_start,
+                                         const int* __restrict__ seg_count, const int* __restrict__ seg_active,
+                                         const float* __restrict__ fwd, int NB, int R, RangeWork& w) {
+  w.b = rb[blockIdx.x];
+  if (w.b >= NB) return false;
+  w.k = blockIdx.x - range_off[w.b];
+  w.count = seg_count[w.b];
+  w.c0 = rc0[blockIdx.x];
+  w.c1 = min(w.c0 + R, active_chunks(seg_count, seg_active, fwd, w.b));
+  w.start = seg_start[w.b];
+  return w.c0 < w.c1;
+}
+
+// ---- (b') each range's own sum of G w (a bundle's first range needs none).
 template <int NSH, bool EXACT>
 __global__ void __launch_bounds__(NRAY)
-trace_bwd_kernel(const float* __restrict__ payload, long long ld, const float* __restrict__ rays,
-                 const int* __restrict__ seg_start, const int* __restrict__ seg_count,
-                 const int* __restrict__ seg_active, const float* __restrict__ fwd,
-                 const float* __restrict__ cot, float* __restrict__ dpayload,
-                 float* __restrict__ drays, float tmin) {
-  constexpr int NROW = ROW_SH + 3 * NSH;  // payload rows read and written
-  __shared__ float sh[NROW][K];
-  __shared__ float part[NWARP][NROW];
-
-  const int b = blockIdx.x;
+gw_kernel(const float* __restrict__ payload, long long ld, const float* __restrict__ rays,
+          const int* __restrict__ seg_start, const int* __restrict__ seg_count, const int* __restrict__ seg_active,
+          const int* __restrict__ rb, const int* __restrict__ rc0, const int* __restrict__ range_off,
+          const float* __restrict__ fwd, const float* __restrict__ cot, const int* __restrict__ res, int NB,
+          int R, float tmin, float* __restrict__ gwsum) {
+  constexpr int NROW = ROW_SH + 3 * NSH;
+  extern __shared__ __align__(16) float smem[];
+  float* s = smem;
+  unsigned long long* keys_smem = reinterpret_cast<unsigned long long*>(smem + NROW * K);
+  RangeWork w;
+  if (!range_of(rb, rc0, range_off, seg_start, seg_count, seg_active, fwd, NB, R, w) || w.k == 0) return;
   const int r = threadIdx.x;
-  const int warp = r >> 5, lane_id = r & 31;
-  const float* ray = rays + ((long long)b * NRAY + r) * 8;
-  const float ox = ray[0], oy = ray[1], oz = ray[2];
-  const float dx = ray[3], dy = ray[4], dz = ray[5];
-  const float inv = 1.0f / sqrtf(clamp_min(dx * dx + dy * dy + dz * dz, 1e-24f));
-  const float xu = dx * inv, yu = dy * inv, zu = dz * inv;
+  const RayCot q = load_ray(rays, fwd, cot, w.b, r);
   float Y[NSH];
-  sh_basis<NSH>(xu, yu, zu, Y);
-
-  const float* f = fwd + ((long long)b * NRAY + r) * C_OUT;
-  const float final_T = f[7], n_contrib = f[8], total_lg = f[9];
-  const float logT_fin = logf(clamp_min(final_T, 1e-30f));
-  const float* g_ = cot + ((long long)b * NRAY + r) * C_OUT;
-  const float dRGB[3] = {g_[0], g_[1], g_[2]};
-  const float dDep = g_[3];
-  const float dN[3] = {g_[4], g_[5], g_[6]};
-  const float dTfin = g_[7];
-
-  const long long start = seg_start[b];
-  const int count = seg_count[b];
-  const int n_chunks = (count + K - 1) / K;
-  const int active_chunks = min((seg_active[b] + K - 1) / K, n_chunks);
-
-  float carry_lg = 0.0f, carry_gw = 0.0f;
-  float do_acc[3] = {0.0f, 0.0f, 0.0f}, dd_acc[3] = {0.0f, 0.0f, 0.0f};
-  float w_of[K], da_of[K];  // this ray's w and dL/dalpha per composited lane
-  unsigned long long keys[EXACT ? K : 1];
-
-  for (int chunk = active_chunks - 1; chunk >= 0; --chunk) {
-    // The previous chunk's gradients have been written out.
+  sh_basis<NSH>(q.xu, q.yu, q.zu, Y);
+  unsigned long long spill[EXACT ? K : 1];
+  auto none = [](int, const Geo&, const float*, float, float) {};
+  float sg = 0.0f;
+  for (int c = w.c1 - 1; c >= w.c0; --c) {
+    const long long g = w.start / K + c;
+    unsigned m[4];
+    // Also the barrier after which the previous chunk is no longer read.
+    if (!load_masks(res, g, r, m)) continue;  // no ray hits a pair of this chunk
+    stage_chunk<NROW>(s, payload, ld, w.start + (long long)c * K);
     __syncthreads();
-    const long long off = start + (long long)chunk * K;
-    for (int i = r; i < NROW * K; i += NRAY) {
-      const int row = i / K, lane = i % K;
-      sh[row][lane] = payload[(long long)row * ld + off + lane];
-    }
-    __syncthreads();
-    const int n_lanes = min(K, count - chunk * K);
-    unsigned long long mask_lo = 0ull, mask_hi = 0ull;  // composited lanes
-    auto mark = [&](int j) {
-      if (j < 64) mask_lo |= 1ull << j;
-      else mask_hi |= 1ull << (j - 64);
-    };
-
-    // ---- A: this ray's weights and dL/dalpha, back to front.
-    float s = carry_lg, sg = carry_gw;
-    if constexpr (!EXACT) {
-      for (int j = n_lanes - 1; j >= 0; --j) {
-        if ((float)(chunk * K + j + 1) > n_contrib) continue;
-        const Geo g = geometry(sh, j, ox, oy, oz, dx, dy, dz, tmin);
-        if (!g.ok) continue;
-        const float a = g.alpha;
-        const float lg = log1pf(-a);
-        const float Gw = dl_dw<NSH>(sh, j, g, Y, dRGB, dDep, dN);
-        const float suf_incl = s + lg;
-        const float T_i = expf(logT_fin - suf_incl);
-        const float w = a * T_i;
-        const float one_m = 1.0f - a;
-        w_of[j] = w;
-        da_of[j] = T_i * Gw - sg / one_m - (final_T / one_m) * dTfin;
-        mark(j);
-        s = suf_incl;
-        sg = sg + Gw * w;
-      }
+    const float Lend = __int_as_float(res[res_at(g, 0, r)]);
+    float s_lg = 0.0f;
+    if (EXACT) {
+      KeyList kl{keys_smem + r, NRAY};
+      const int n_hits = sort_hits(s, m, q, tmin, kl, spill);
+      walk_sorted<NSH>(s, c, kl, n_hits, q, Y, Lend, tmin, s_lg, sg, none);
     } else {
-      int n_hits = 0;
-      for (int j = 0; j < n_lanes; ++j) {
-        const Geo g = geometry(sh, j, ox, oy, oz, dx, dy, dz, tmin);
-        if (!g.ok) continue;
-        // Lanes arrive in increasing order: a tie stays behind the earlier
-        // lane (the forward's order).
-        const unsigned long long key = ((unsigned long long)order_bits(g.t) << 32) | (unsigned)j;
-        int i = n_hits++;
-        while (i > 0 && keys[i - 1] > key) {
-          keys[i] = keys[i - 1];
-          --i;
-        }
-        keys[i] = key;
-      }
-      for (int i = n_hits - 1; i >= 0; --i) {
-        const int j = (int)(keys[i] & 0xffffffffull);
-        const Geo g = geometry(sh, j, ox, oy, oz, dx, dy, dz, tmin);
-        const float a = g.alpha;
-        const float lg = log1pf(-a);
-        const float prefix_excl = total_lg - s - lg;
-        if (prefix_excl + lg >= LOG_T_STOP) {
-          const float Gw = dl_dw<NSH>(sh, j, g, Y, dRGB, dDep, dN);
-          const float T_i = expf(clamp_max(prefix_excl, 0.0f));
-          const float w = a * T_i;
-          const float one_m = 1.0f - a;
-          w_of[j] = w;
-          da_of[j] = T_i * Gw - sg / one_m - (final_T / one_m) * dTfin;
-          mark(j);
-          sg = sg + Gw * w;
-        }
-        s = s + lg;
-      }
+      walk_lanes<NSH>(s, c, m[2], m[3], 64, q, Y, Lend, tmin, s_lg, sg, none);
+      walk_lanes<NSH>(s, c, m[0], m[1], 0, q, Y, Lend, tmin, s_lg, sg, none);
     }
-    carry_lg = s;
-    carry_gw = sg;
+  }
+  gwsum[(long long)blockIdx.x * NRAY + r] = sg;
+}
 
-    // ---- B: per lane, every ray's contributions summed into the lane's column.
-    float do_c[3] = {0.0f, 0.0f, 0.0f}, dd_c[3] = {0.0f, 0.0f, 0.0f};
-    float dY[NSH];
+// ---- (c') the range's gradients.
+template <int NSH, bool EXACT>
+__global__ void __launch_bounds__(NRAY, 1)
+grad_kernel(const float* __restrict__ payload, long long ld, const float* __restrict__ rays,
+            const int* __restrict__ seg_start, const int* __restrict__ seg_count, const int* __restrict__ seg_active,
+            const int* __restrict__ rb, const int* __restrict__ rc0, const int* __restrict__ range_off,
+            const float* __restrict__ fwd, const float* __restrict__ cot, const int* __restrict__ res,
+            const float* __restrict__ gwsum, int NB, int R, float tmin, float* __restrict__ dpayload,
+            float* __restrict__ part) {
+  constexpr int NROW = ROW_SH + 3 * NSH;
+  constexpr int NRS = 13 + NSH;  // staged ray fields: o 3, d 3, dDep, dN 3, dRGB 3, Y
+  extern __shared__ __align__(16) float smem[];
+  float* s = smem;                    // (NROW, K) the staged chunk
+  float* wbuf = s + NROW * K;         // (NRAY, WPAD) w of the half's lanes, zero where none
+  float* dabuf = wbuf + NRAY * WPAD;  // (NRAY, WPAD) dL/dalpha; pass B's quarter sums
+  float* rs = dabuf + NRAY * WPAD;    // (NRS, NRAY) the rays
+  unsigned long long* keys_smem = reinterpret_cast<unsigned long long*>(rs + NRS * NRAY);
+
+  RangeWork w;
+  if (!range_of(rb, rc0, range_off, seg_start, seg_count, seg_active, fwd, NB, R, w)) return;
+  const int r = threadIdx.x;
+  const RayCot q = load_ray(rays, fwd, cot, w.b, r);
+  float Y[NSH];
+  sh_basis<NSH>(q.xu, q.yu, q.zu, Y);
+  {
+    float f[13] = {q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, q.dDep, q.dN[0], q.dN[1], q.dN[2],
+                   q.dRGB[0], q.dRGB[1], q.dRGB[2]};
+#pragma unroll
+    for (int i = 0; i < 13; ++i) rs[i * NRAY + r] = f[i];
+#pragma unroll
+    for (int k = 0; k < NSH; ++k) rs[(13 + k) * NRAY + r] = Y[k];
+    for (int i = r; i < NRAY * WPAD; i += NRAY) wbuf[i] = 0.0f;
+  }
+  // carry_gw: the later ranges' sums, from the last range back.
+  float sg = 0.0f;
+  {
+    const int nra = (active_chunks(seg_count, seg_active, fwd, w.b) + R - 1) / R;
+    const long long first = range_off[w.b];
+    for (int k = nra - 1; k > w.k; --k) sg = sg + gwsum[(first + k) * NRAY + r];
+  }
+  unsigned long long spill[EXACT ? K : 1];
+  float do_r[3] = {0.0f, 0.0f, 0.0f}, dd_r[3] = {0.0f, 0.0f, 0.0f};
+  const int jl = r & (HALF - 1), quarter = r / HALF;  // pass B's lane and ray quarter
+
+  for (int c = w.c1 - 1; c >= w.c0; --c) {
+    const long long g = w.start / K + c;
+    const long long off = w.start + (long long)c * K;
+    unsigned m[4];
+    // Also the barrier after which the previous chunk is no longer read. A
+    // chunk no ray hits has no gradient: its dpayload columns stay zero.
+    if (!load_masks(res, g, r, m)) continue;
+    stage_chunk<NROW>(s, payload, ld, off);
+    __syncthreads();
+    const float Lend = __int_as_float(res[res_at(g, 0, r)]);
+    KeyList kl{keys_smem + r, NRAY};
+    const int n_hits = EXACT ? sort_hits(s, m, q, tmin, kl, spill) : 0;
+    const float sg_in = sg;
+    float s_lg = 0.0f;
+    float do_c[3] = {0.0f, 0.0f, 0.0f}, dd_c[3] = {0.0f, 0.0f, 0.0f}, dY[NSH];
 #pragma unroll
     for (int k = 0; k < NSH; ++k) dY[k] = 0.0f;
-    for (int j = 0; j < K; ++j) {
-      const bool mine = ((j < 64 ? mask_lo >> j : mask_hi >> (j - 64)) & 1ull) != 0ull;
-      // Also the barrier after which lane j-1's partial sums may be overwritten.
-      if (!__syncthreads_or(mine)) {
-        if (r < NROW) sh[r][j] = 0.0f;
-        continue;
-      }
-      if (!__any_sync(0xffffffffu, mine)) {
-        for (int row = lane_id; row < NROW; row += 32) part[warp][row] = 0.0f;
+
+#pragma unroll
+    for (int half = 1; half >= 0; --half) {
+      const unsigned mlo = half ? m[2] : m[0], mhi = half ? m[3] : m[1];
+      // Also the barrier after which the previous half's sums are read.
+      if (!__syncthreads_or((mlo | mhi) != 0u)) continue;  // no ray hits a lane of this half
+      // ---- A: this ray's w and dL/dalpha on the half's lanes.
+      auto visit = [&](int j, const Geo& g, const float* raw, float wt, float dalpha) {
+        if (EXACT && (j / HALF) != half) return;
+        wbuf[r * WPAD + (j & (HALF - 1))] = wt;
+        dabuf[r * WPAD + (j & (HALF - 1))] = dalpha;
+        // The ray's own terms (origin, direction, SH basis).
+        const float tux = s[ROW_TU * K + j], tuy = s[(ROW_TU + 1) * K + j], tuz = s[(ROW_TU + 2) * K + j];
+        const float tvx = s[ROW_TV * K + j], tvy = s[(ROW_TV + 1) * K + j], tvz = s[(ROW_TV + 2) * K + j];
+        const float nx = s[ROW_N * K + j], ny = s[(ROW_N + 1) * K + j], nz = s[(ROW_N + 2) * K + j];
+        const float dG_g = s[ROW_OPA * K + j] * dalpha;
+        const float drho = -0.5f * g.G * dG_g;
+        const float du = 2.0f * g.u * drho;
+        const float dv = 2.0f * g.v * drho;
+        const float dqx = du * tux + dv * tvx;
+        const float dqy = du * tuy + dv * tvy;
+        const float dqz = du * tuz + dv * tvz;
+        const float dt = wt * q.dDep + dqx * q.dx + dqy * q.dy + dqz * q.dz;
+        const float inv_den = 1.0f / g.den_s;
+        const float dden = -g.t * inv_den * dt;
+        do_c[0] = do_c[0] + (dqx - dt * nx * inv_den);
+        do_c[1] = do_c[1] + (dqy - dt * ny * inv_den);
+        do_c[2] = do_c[2] + (dqz - dt * nz * inv_den);
+        dd_c[0] = dd_c[0] + (g.t * dqx + dden * nx);
+        dd_c[1] = dd_c[1] + (g.t * dqy + dden * ny);
+        dd_c[2] = dd_c[2] + (g.t * dqz + dden * nz);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float Xc = raw[ch] > 0.0f ? q.dRGB[ch] * wt : 0.0f;
+#pragma unroll
+          for (int k = 0; k < NSH; ++k) dY[k] = dY[k] + Xc * s[(ROW_SH + ch * NSH + k) * K + j];
+        }
+      };
+      if (EXACT) {
+        // The sorted walk spans both halves: it runs whole for each.
+        s_lg = 0.0f;
+        sg = sg_in;
+        walk_sorted<NSH>(s, c, kl, n_hits, q, Y, Lend, tmin, s_lg, sg, visit);
       } else {
-        float v[13];
-        float Xc[3] = {0.0f, 0.0f, 0.0f};
-        float wj = 0.0f;
-        if (mine) {
-          const Geo g = geometry(sh, j, ox, oy, oz, dx, dy, dz, tmin);
-          const float dalpha = da_of[j];
-          wj = w_of[j];
-          const float nx = sh[ROW_N][j], ny = sh[ROW_N + 1][j], nz = sh[ROW_N + 2][j];
-          const float tux = sh[ROW_TU][j], tuy = sh[ROW_TU + 1][j], tuz = sh[ROW_TU + 2][j];
-          const float tvx = sh[ROW_TV][j], tvy = sh[ROW_TV + 1][j], tvz = sh[ROW_TV + 2][j];
-          const float dG_g = sh[ROW_OPA][j] * dalpha;
-          const float dopa = g.G * dalpha;
-          const float drho = -0.5f * g.G * dG_g;
-          const float du = 2.0f * g.u * drho;
-          const float dv = 2.0f * g.v * drho;
-          const float dqx = du * tux + dv * tvx;
-          const float dqy = du * tuy + dv * tvy;
-          const float dqz = du * tuz + dv * tvz;
-          const float dt = wj * dDep + dqx * dx + dqy * dy + dqz * dz;
-          const float inv_den = 1.0f / g.den_s;
-          const float dden = -g.t * inv_den * dt;
-          const float wf = wj * (g.denom > 0.0f ? -1.0f : 1.0f);
-          v[0] = -dqx + dt * nx * inv_den;
-          v[1] = -dqy + dt * ny * inv_den;
-          v[2] = -dqz + dt * nz * inv_den;
-          v[3] = du * g.qx;
-          v[4] = du * g.qy;
-          v[5] = du * g.qz;
-          v[6] = dv * g.qx;
-          v[7] = dv * g.qy;
-          v[8] = dv * g.qz;
-          v[9] = dt * g.pox * inv_den + dden * dx + wf * dN[0];
-          v[10] = dt * g.poy * inv_den + dden * dy + wf * dN[1];
-          v[11] = dt * g.poz * inv_den + dden * dz + wf * dN[2];
-          v[12] = dopa;
-          do_c[0] = do_c[0] + (dqx - dt * nx * inv_den);
-          do_c[1] = do_c[1] + (dqy - dt * ny * inv_den);
-          do_c[2] = do_c[2] + (dqz - dt * nz * inv_den);
-          dd_c[0] = dd_c[0] + (g.t * dqx + dden * nx);
-          dd_c[1] = dd_c[1] + (g.t * dqy + dden * ny);
-          dd_c[2] = dd_c[2] + (g.t * dqz + dden * nz);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            Xc[c] = raw_color<NSH>(sh, c, j, Y) > 0.0f ? dRGB[c] * wj : 0.0f;
-#pragma unroll
-            for (int k = 0; k < NSH; ++k) dY[k] = dY[k] + Xc[c] * sh[ROW_SH + c * NSH + k][j];
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 13; ++i) v[i] = 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < 13; ++i) {
-          const float sum = warp_sum(v[i]);
-          if (lane_id == 0) part[warp][i] = sum;
-        }
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-#pragma unroll
-          for (int k = 0; k < NSH; ++k) {
-            const float sum = warp_sum(Y[k] * Xc[c]);
-            if (lane_id == 0) part[warp][ROW_SH + c * NSH + k] = sum;
-          }
-        }
+        walk_lanes<NSH>(s, c, mlo, mhi, half * HALF, q, Y, Lend, tmin, s_lg, sg, visit);
       }
       __syncthreads();
-      if (r < NROW) {
-        float sum = part[0][r];
+
+      // ---- B: thread (lane, quarter) sums its rays' rows for the lane.
+      float acc[NROW];
 #pragma unroll
-        for (int w8 = 1; w8 < NWARP; ++w8) sum = sum + part[w8][r];
-        sh[r][j] = sum;  // no later lane reads column j of the payload
+      for (int i = 0; i < NROW; ++i) acc[i] = 0.0f;
+      const int j = half * HALF + jl;
+      const float nx = s[ROW_N * K + j], ny = s[(ROW_N + 1) * K + j], nz = s[(ROW_N + 2) * K + j];
+      const float tux = s[ROW_TU * K + j], tuy = s[(ROW_TU + 1) * K + j], tuz = s[(ROW_TU + 2) * K + j];
+      const float tvx = s[ROW_TV * K + j], tvy = s[(ROW_TV + 1) * K + j], tvz = s[(ROW_TV + 2) * K + j];
+      const float opa = s[ROW_OPA * K + j];
+      for (int i = 0; i < NRAY / 4; ++i) {
+        const int rr = quarter * (NRAY / 4) + i;
+        const float wj = wbuf[rr * WPAD + jl];
+        if (wj == 0.0f) continue;  // not composited (an included hit has w > 0)
+        const float dalpha = dabuf[rr * WPAD + jl];
+        const float ox = rs[0 * NRAY + rr], oy = rs[1 * NRAY + rr], oz = rs[2 * NRAY + rr];
+        const float dx = rs[3 * NRAY + rr], dy = rs[4 * NRAY + rr], dz = rs[5 * NRAY + rr];
+        const float dDep = rs[6 * NRAY + rr];
+        const Geo g = geometry(s, j, ox, oy, oz, dx, dy, dz, tmin);
+        const float dG_g = opa * dalpha;
+        const float dopa = g.G * dalpha;
+        const float drho = -0.5f * g.G * dG_g;
+        const float du = 2.0f * g.u * drho;
+        const float dv = 2.0f * g.v * drho;
+        const float dqx = du * tux + dv * tvx;
+        const float dqy = du * tuy + dv * tvy;
+        const float dqz = du * tuz + dv * tvz;
+        const float dt = wj * dDep + dqx * dx + dqy * dy + dqz * dz;
+        const float inv_den = 1.0f / g.den_s;
+        const float dden = -g.t * inv_den * dt;
+        const float wf = wj * (g.denom > 0.0f ? -1.0f : 1.0f);
+        acc[0] = acc[0] + (-dqx + dt * nx * inv_den);
+        acc[1] = acc[1] + (-dqy + dt * ny * inv_den);
+        acc[2] = acc[2] + (-dqz + dt * nz * inv_den);
+        acc[3] = acc[3] + du * g.qx;
+        acc[4] = acc[4] + du * g.qy;
+        acc[5] = acc[5] + du * g.qz;
+        acc[6] = acc[6] + dv * g.qx;
+        acc[7] = acc[7] + dv * g.qy;
+        acc[8] = acc[8] + dv * g.qz;
+        acc[9] = acc[9] + (dt * g.pox * inv_den + dden * dx + wf * rs[7 * NRAY + rr]);
+        acc[10] = acc[10] + (dt * g.poy * inv_den + dden * dy + wf * rs[8 * NRAY + rr]);
+        acc[11] = acc[11] + (dt * g.poz * inv_den + dden * dz + wf * rs[9 * NRAY + rr]);
+        acc[12] = acc[12] + dopa;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float raw = raw_color<NSH>(s, ch, j, rs + 13 * NRAY + rr, NRAY);
+          const float Xc = raw > 0.0f ? rs[(10 + ch) * NRAY + rr] * wj : 0.0f;
+#pragma unroll
+          for (int k = 0; k < NSH; ++k)
+            acc[ROW_SH + ch * NSH + k] = acc[ROW_SH + ch * NSH + k] + rs[(13 + k) * NRAY + rr] * Xc;
+        }
+      }
+      __syncthreads();  // every thread is done with wbuf / dabuf
+      // The ray's entries go back to zero (every hit of the half; the
+      // walk wrote only the included ones); the quarters' sums go to dabuf.
+      for (unsigned bits = mlo; bits; bits &= bits - 1u) wbuf[r * WPAD + __ffs(bits) - 1] = 0.0f;
+      for (unsigned bits = mhi; bits; bits &= bits - 1u) wbuf[r * WPAD + 32 + __ffs(bits) - 1] = 0.0f;
+      float* qsum = dabuf;  // (4, NROW, HALF)
+#pragma unroll
+      for (int i = 0; i < NROW; ++i) qsum[(quarter * NROW + i) * HALF + jl] = acc[i];
+      __syncthreads();
+      for (int i = r; i < NROW * HALF; i += NRAY) {
+        const int row = i / HALF, lane = i % HALF;
+        float sum = qsum[row * HALF + lane];
+#pragma unroll
+        for (int qq = 1; qq < 4; ++qq) sum = sum + qsum[(qq * NROW + row) * HALF + lane];
+        dpayload[(long long)row * ld + off + half * HALF + lane] = sum;
       }
     }
 
     // The ray direction's gradient through the SH basis, once per chunk.
     if constexpr (NSH > 1) {
       float gx, gy, gz;
-      sh_grad_dot<NSH>(xu, yu, zu, dY, gx, gy, gz);
-      const float proj = xu * gx + yu * gy + zu * gz;
-      dd_c[0] = dd_c[0] + inv * (gx - xu * proj);
-      dd_c[1] = dd_c[1] + inv * (gy - yu * proj);
-      dd_c[2] = dd_c[2] + inv * (gz - zu * proj);
+      sh_grad_dot<NSH>(q.xu, q.yu, q.zu, dY, gx, gy, gz);
+      const float proj = q.xu * gx + q.yu * gy + q.zu * gz;
+      dd_c[0] = dd_c[0] + q.inv * (gx - q.xu * proj);
+      dd_c[1] = dd_c[1] + q.inv * (gy - q.yu * proj);
+      dd_c[2] = dd_c[2] + q.inv * (gz - q.zu * proj);
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      do_acc[i] = do_acc[i] + do_c[i];
-      dd_acc[i] = dd_acc[i] + dd_c[i];
-    }
-
-    __syncthreads();
-    for (int i = r; i < NROW * K; i += NRAY) {
-      const int row = i / K, lane = i % K;
-      dpayload[(long long)row * ld + off + lane] = sh[row][lane];
+      do_r[i] = do_r[i] + do_c[i];
+      dd_r[i] = dd_r[i] + dd_c[i];
     }
   }
 
-  float* out = drays + ((long long)b * NRAY + r) * 8;
-  out[0] = do_acc[0];
-  out[1] = do_acc[1];
-  out[2] = do_acc[2];
-  out[3] = dd_acc[0];
-  out[4] = dd_acc[1];
-  out[5] = dd_acc[2];
-  out[6] = 0.0f;
-  out[7] = 0.0f;
+  float* o = part + (long long)blockIdx.x * NDR * NRAY + r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    o[i * NRAY] = do_r[i];
+    o[(3 + i) * NRAY] = dd_r[i];
+  }
+}
+
+// ---- (d') the bundle's ray partials, summed in range order.
+__global__ void __launch_bounds__(NRAY)
+ray_reduce_kernel(const int* __restrict__ seg_count, const int* __restrict__ seg_active,
+                  const int* __restrict__ range_off, const float* __restrict__ fwd, const float* __restrict__ part,
+                  int R, float* __restrict__ drays) {
+  const int b = blockIdx.x;
+  const int r = threadIdx.x;
+  const int nra = (active_chunks(seg_count, seg_active, fwd, b) + R - 1) / R;
+  float acc[NDR] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < nra; ++k) {
+    const float* p = part + (long long)(range_off[b] + k) * NDR * NRAY + r;
+#pragma unroll
+    for (int i = 0; i < NDR; ++i) acc[i] = acc[i] + p[i * NRAY];
+  }
+  float* o = drays + ((long long)b * NRAY + r) * 8;
+#pragma unroll
+  for (int i = 0; i < NDR; ++i) o[i] = acc[i];
+  o[6] = 0.0f;
+  o[7] = 0.0f;
+}
+
+template <int NSH, bool EXACT>
+cudaError_t launch_t(const float* payload, long long ld, const float* rays, const int* seg_start,
+                     const int* seg_count, const int* seg_active, const int* rb, const int* rc0,
+                     const int* range_off, int n_ranges, const float* fwd, const float* cot, const int* res,
+                     float* gwsum, float* part, float* dpayload, int NB, int R, float tmin, cudaStream_t stream) {
+  constexpr int NROW = ROW_SH + 3 * NSH;
+  const size_t keys = EXACT ? KEYS_SMEM * NRAY * sizeof(unsigned long long) : 0;
+  const size_t gw_bytes = NROW * K * sizeof(float) + keys;
+  const size_t grad_bytes = (NROW * K + 2 * NRAY * WPAD + (13 + NSH) * NRAY) * sizeof(float) + keys;
+  cudaError_t e = cudaFuncSetAttribute(gw_kernel<NSH, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)gw_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(grad_kernel<NSH, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)grad_bytes);
+  if (e != cudaSuccess) return e;
+  gw_kernel<NSH, EXACT><<<n_ranges, NRAY, gw_bytes, stream>>>(payload, ld, rays, seg_start, seg_count, seg_active,
+                                                              rb, rc0, range_off, fwd, cot, res, NB, R, tmin,
+                                                              gwsum);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  grad_kernel<NSH, EXACT><<<n_ranges, NRAY, grad_bytes, stream>>>(payload, ld, rays, seg_start, seg_count,
+                                                                  seg_active, rb, rc0, range_off, fwd, cot, res,
+                                                                  gwsum, NB, R, tmin, dpayload, part);
+  return cudaGetLastError();
 }
 
 template <int NSH>
 cudaError_t launch(const float* payload, long long ld, const float* rays, const int* seg_start,
-                   const int* seg_count, const int* seg_active, const float* fwd, const float* cot,
-                   float* dpayload, float* drays, int NB, float tmin, int exact, cudaStream_t stream) {
+                   const int* seg_count, const int* seg_active, const int* rb, const int* rc0,
+                   const int* range_off, int n_ranges, const float* fwd, const float* cot, const int* res,
+                   float* gwsum, float* part, float* dpayload, int NB, int R, float tmin, int exact,
+                   cudaStream_t stream) {
   if (exact)
-    trace_bwd_kernel<NSH, true><<<NB, NRAY, 0, stream>>>(payload, ld, rays, seg_start, seg_count,
-                                                         seg_active, fwd, cot, dpayload, drays, tmin);
-  else
-    trace_bwd_kernel<NSH, false><<<NB, NRAY, 0, stream>>>(payload, ld, rays, seg_start, seg_count,
-                                                          seg_active, fwd, cot, dpayload, drays, tmin);
-  return cudaGetLastError();
+    return launch_t<NSH, true>(payload, ld, rays, seg_start, seg_count, seg_active, rb, rc0, range_off, n_ranges,
+                               fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, stream);
+  return launch_t<NSH, false>(payload, ld, rays, seg_start, seg_count, seg_active, rb, rc0, range_off, n_ranges,
+                              fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). payload: (pay_rows(n_sh), ld)
 // float32 rows, one column per pair; rays: (NB, 256, 8); seg_start (NB+1,),
-// seg_count / seg_active (NB,) int32; fwd / cot: (NB, 256, 16) float32;
-// dpayload: the payload's shape, zeroed by the caller (only walked chunks
-// are written); drays: (NB, 256, 8). Returns the launch's
-// cudaGetLastError() (cudaErrorInvalidValue for an n_sh it was not built for).
-extern "C" int trace_bundles_bwd(const float* payload, long long ld, const float* rays,
-                                 const int* seg_start, const int* seg_count, const int* seg_active,
-                                 const float* fwd, const float* cot, float* dpayload, float* drays,
-                                 int NB, int n_sh, float tmin, int exact_order, void* stream) {
+// seg_count / seg_active (NB,) int32; the forward's work list (range_bundle /
+// range_chunk0 (n_ranges,), range_off (NB+1,) int32, ranges of at most R
+// chunks); fwd / cot: (NB, 256, 16) float32; res (ld / 128, 5, 256) int32:
+// the forward's residual (each processed chunk's end log T and the rays'
+// hit masks, csrc/trace_fwd.cu). Scratch: gwsum
+// (n_ranges, 256), part (n_ranges, 6, 256) float32. dpayload: the payload's
+// shape, zeroed by the caller (only walked chunks are written); drays:
+// (NB, 256, 8). Returns the first failing launch's error
+// (cudaErrorInvalidValue for an n_sh it was not built for).
+extern "C" int trace_bundles_bwd(const float* payload, long long ld, const float* rays, const int* seg_start,
+                                 const int* seg_count, const int* seg_active, const int* range_bundle,
+                                 const int* range_chunk0, const int* range_off, int n_ranges, const float* fwd,
+                                 const float* cot, const int* res, float* gwsum, float* part, float* dpayload,
+                                 float* drays, int NB, int n_sh, int R, float tmin, int exact_order, void* stream) {
   if (NB <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (n_sh) {
-    case 1: return (int)launch<1>(payload, ld, rays, seg_start, seg_count, seg_active, fwd, cot, dpayload, drays, NB, tmin, exact_order, s);
-    case 4: return (int)launch<4>(payload, ld, rays, seg_start, seg_count, seg_active, fwd, cot, dpayload, drays, NB, tmin, exact_order, s);
-    case 9: return (int)launch<9>(payload, ld, rays, seg_start, seg_count, seg_active, fwd, cot, dpayload, drays, NB, tmin, exact_order, s);
-    case 16: return (int)launch<16>(payload, ld, rays, seg_start, seg_count, seg_active, fwd, cot, dpayload, drays, NB, tmin, exact_order, s);
-    default: return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (n_ranges > 0) {
+    switch (n_sh) {
+      case 1: e = launch<1>(payload, ld, rays, seg_start, seg_count, seg_active, range_bundle, range_chunk0, range_off, n_ranges, fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, exact_order, s); break;
+      case 4: e = launch<4>(payload, ld, rays, seg_start, seg_count, seg_active, range_bundle, range_chunk0, range_off, n_ranges, fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, exact_order, s); break;
+      case 9: e = launch<9>(payload, ld, rays, seg_start, seg_count, seg_active, range_bundle, range_chunk0, range_off, n_ranges, fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, exact_order, s); break;
+      case 16: e = launch<16>(payload, ld, rays, seg_start, seg_count, seg_active, range_bundle, range_chunk0, range_off, n_ranges, fwd, cot, res, gwsum, part, dpayload, NB, R, tmin, exact_order, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess) return (int)e;
   }
+  ray_reduce_kernel<<<NB, NRAY, 0, s>>>(seg_count, seg_active, range_off, fwd, part, R, drays);
+  return (int)cudaGetLastError();
 }

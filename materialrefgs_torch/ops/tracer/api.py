@@ -33,7 +33,7 @@ from materialrefgs_torch.ops.tracer.layout import (
     pay_rows,
 )
 from materialrefgs_torch.ops.tracer.trace_bwd import trace_bundles_bwd
-from materialrefgs_torch.ops.tracer.trace_fwd import trace_bundles_fwd
+from materialrefgs_torch.ops.tracer.trace_fwd import new_residual, trace_bundles_fwd
 from materialrefgs_torch.utils.transforms import normalize, quat_to_rotmat
 
 CLUSTER = 256
@@ -55,41 +55,47 @@ class TracerConfig:
 class _TraceCore(torch.autograd.Function):
     """The payload gather and the tracer kernels (api.py:122-160 of the JAX
     package). Forward: gather the (rows, P) per-gaussian table's columns of
-    the binned pairs straight into the one (pay_rows, B + 128) payload buffer
-    (invalid pairs zero), then `trace_bundles_fwd`. Backward: the walk bound
-    `seg_active` as `_trace_core_bwd` computes it, `trace_bundles_bwd`, and
-    the valid pairs' payload gradients `index_add_`ed into a (rows, P)
-    table. Both gather and scatter only the columns the segments span
-    (seg_start[-1]): every valid pair lies there, and a budget raised for
-    the largest view leaves most of the B columns unused on the others."""
+    the binned pairs straight into the one payload buffer (invalid pairs
+    zero), then `trace_bundles_fwd`, which also fills the backward's
+    residual (each processed chunk's end log T and hit masks). Backward: the walk bound `seg_active`
+    as `_trace_core_bwd` computes it, `trace_bundles_bwd`, and the valid
+    pairs' payload gradients `index_add_`ed into a (rows, P) table. The
+    payload and its gradient span only the columns the segments use
+    (seg_start[-1], + 128): every valid pair lies there."""
 
     @staticmethod
     def forward(ctx, table, rays8, pair_gauss, pair_valid, seg_start, seg_count, n_sh, tmin, exact_order):
-        nrow, B = table.shape[0], pair_gauss.shape[0]
+        nrow = table.shape[0]
         used = int(seg_start[-1])
-        payload = torch.empty((pay_rows(n_sh), B + K_CHUNK), dtype=torch.float32, device=table.device)
+        # The kernels never stage past the segments' 128-aligned ends, so the
+        # payload spans only the columns they use (+128 spare), not the
+        # budget's B: a budget raised for the largest view leaves most of B
+        # unused on the others.
+        payload = torch.empty((pay_rows(n_sh), used + K_CHUNK), dtype=torch.float32, device=table.device)
         payload[nrow:].zero_()
         payload[:nrow, used:].zero_()
         torch.index_select(table, 1, pair_gauss[:used], out=payload[:nrow, :used])
         payload[:nrow, :used].masked_fill_(~pair_valid[:used], 0.0)
+        # Each processed chunk's end log T and hit masks, which the backward reads.
+        residual = new_residual(payload) if any(ctx.needs_input_grad[:2]) else None
         out = trace_bundles_fwd(payload, rays8, seg_start, seg_count, n_sh=n_sh, tmin=tmin,
-                                exact_order=exact_order)
-        ctx.save_for_backward(payload, rays8, seg_start, seg_count, out, pair_gauss[:used], pair_valid[:used])
+                                exact_order=exact_order, residual=residual)
+        ctx.save_for_backward(payload, rays8, seg_start, seg_count, out, pair_gauss[:used], pair_valid[:used],
+                              residual)
         ctx.cfg = (n_sh, tmin, exact_order, nrow, table.shape[1])
         return out
 
     @staticmethod
     def backward(ctx, g):
-        payload, rays8, seg_start, seg_count, out, pair_gauss, pair_valid = ctx.saved_tensors
+        payload, rays8, seg_start, seg_count, out, pair_gauss, pair_valid, residual = ctx.saved_tensors
         n_sh, tmin, exact_order, nrow, P = ctx.cfg
         if exact_order:
-            # The exact-order backward rebuilds each ray's prefixes from SUMLG,
-            # which spans every chunk the forward processed: walk all of them.
+            # The exact-order backward walks every chunk the forward processed.
             seg_active = torch.amax(out[..., OUT_NPROC], dim=1).to(torch.int32) * K_CHUNK
         else:
             seg_active = torch.amax(out[..., OUT_NCONTRIB], dim=1).to(torch.int32)
-        dpay, drays = trace_bundles_bwd(payload, rays8, seg_start, seg_count, seg_active, out,
-                                        g.contiguous(), n_sh=n_sh, tmin=tmin, exact_order=exact_order)
+        dpay, drays = trace_bundles_bwd(payload, rays8, seg_start, seg_count, seg_active, out, g.contiguous(),
+                                        n_sh=n_sh, tmin=tmin, exact_order=exact_order, residual=residual)
         dtable = None
         if ctx.needs_input_grad[0]:
             src = dpay[:nrow, : pair_gauss.shape[0]]  # the columns the segments span

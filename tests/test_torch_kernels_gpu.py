@@ -164,12 +164,14 @@ def _trace_scene(seed, device, P=4000, NB=12):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R", [2, 64], ids=["R2", "R64"])
 @pytest.mark.parametrize("exact", [False, True], ids=["list", "exact"])
 @pytest.mark.parametrize("n_sh", [1, 16])
-def test_trace_fwd_kernel_matches_plain(cuda_device, n_sh, exact):
-    """All 16 output channels; n_contrib and NPROC identical, the float
-    channels within 1e-5 of each value + 1e-6 (the kernel repeats the plain
-    version's operations in its order, built without FMA contraction)."""
+def test_trace_fwd_kernel_matches_plain(cuda_device, n_sh, exact, R):
+    """All 16 output channels and the residual (per-chunk log T, hit masks) bit for bit
+    (the kernels repeat the plain version's operations in its order, built
+    without FMA contraction), with ranges of R chunks: 2, below the longest
+    walk, and 64, above it (every bundle one range)."""
     (o, d, means, scales, rots, opac, shs), mask = _trace_scene(3, cuda_device)
     captured = {}
     real = tracer_api.trace_bundles_fwd
@@ -190,18 +192,23 @@ def test_trace_fwd_kernel_matches_plain(cuda_device, n_sh, exact):
     args, kw = captured["args"], captured["kw"]
     count = args[3]
     assert int(count[3]) == 0 and int(count.max()) > 3 * tlay.K_CHUNK
+    kw = dict(kw, range_chunks=R)
+    res_k, res_p = (trace_fwd.new_residual(args[0]).zero_() for _ in "kp")
     before = trace_fwd.trace_bundles_fwd.launches
-    out = trace_fwd.trace_bundles_fwd(*args, **kw)
+    out = trace_fwd.trace_bundles_fwd(*args, **dict(kw, residual=res_k))
     torch.cuda.synchronize()
     assert trace_fwd.trace_bundles_fwd.launches == before + 1
-    ref = trace_fwd.trace_bundles_fwd_plain(*args, **kw)
+    ref = trace_fwd.trace_bundles_fwd_plain(*args, **dict(kw, residual=res_p))
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
     nproc = ref[:, 0, tlay.OUT_NPROC]
     n_chunks = (count.cpu().numpy() + tlay.K_CHUNK - 1) // tlay.K_CHUNK
     assert (nproc[8:] < n_chunks[8:]).any()  # an early exit
-    for c in (tlay.OUT_NCONTRIB, tlay.OUT_NPROC):
-        assert np.array_equal(out[..., c], ref[..., c]), c
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    assert (R < nproc.max()) == (R == 2)
+    np.testing.assert_array_equal(out, ref)
+    starts = args[2].cpu().numpy() // tlay.K_CHUNK
+    for b in range(len(nproc)):  # the rows of the processed chunks
+        rows = slice(int(starts[b]), int(starts[b] + nproc[b]))
+        assert torch.equal(res_k[rows], res_p[rows]), b
 
 
 def _per_value_ok(out, ref):
@@ -216,9 +223,10 @@ def _per_value_ok(out, ref):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R", [2, 64], ids=["R2", "R64"])
 @pytest.mark.parametrize("exact", [False, True], ids=["list", "exact"])
 @pytest.mark.parametrize("n_sh", [1, 16])
-def test_trace_bwd_kernel_matches_plain(cuda_device, n_sh, exact):
+def test_trace_bwd_kernel_matches_plain(cuda_device, n_sh, exact, R):
     """Payload and ray gradients for a random cotangent on rgb, depth, normal
     and final_T, per value within _per_value_ok's rule for each payload row
     group and for ray origin and direction; columns outside the walked chunks
@@ -240,8 +248,9 @@ def test_trace_bwd_kernel_matches_plain(cuda_device, n_sh, exact):
     finally:
         tracer_api.trace_bundles_fwd = real
     payload, rays, start, count = captured["args"]
-    kw = captured["kw"]
+    kw = dict(captured["kw"], range_chunks=R)
     fwd = trace_fwd.trace_bundles_fwd(payload, rays, start, count, **kw)
+    kw.pop("residual")
     if exact:
         active = torch.amax(fwd[..., tlay.OUT_NPROC], dim=1).to(torch.int32) * tlay.K_CHUNK
     else:
