@@ -15,10 +15,10 @@ import torch
 
 from materialrefgs_torch.ops.tracer.layout import K_CHUNK
 
-# Chunks per range. The surfel2 step's walks (PERF.md §6, PR 5) are short
+# Chunks per range. A surfel2 training step's walks (PERF.md §6) are short
 # (median 6 chunks) with a tail of silhouette bundles up to ~800 chunks; at
-# 8 a range is a few hundred microseconds of one block's work and the step
-# still gives ~5,000 ranges (ring view 0: ~59,000) for 132 SMs.
+# 8 a range is about a hundred microseconds of one block's hit tests and the
+# step still gives ~5,000 ranges (ring view 0: ~59,000) for 132 SMs.
 RANGE_CHUNKS = 8
 
 
