@@ -40,7 +40,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      outcomes on the same inputs), and the Trainer's step (host clock,
      torch.profiler device-busy share and top kernels): `initial` on the
      learning check's state, `surfel` on the run's checkpoint at 30 and on
-     its state after 60;
+     its state after 60; then both rasterizer kernels at one more step of
+     that state's captured inputs (input (ii), over 10M pairs after the
+     compressed resets) against their plain versions (the forward bit for
+     bit), with their times, plain times and bounds;
  10. serve a full-width env-GS (`surfel2`) refnerf checkpoint through
      scripts/eval_torch.py's path: phase 4's model with its splats turned to
      lie in the shell (normals radial), saved under iteration_30000, plus a
@@ -71,7 +74,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      the budget probe), the mesh re-extraction at 220, env densify every 5
      iterations and the env reset at 240, test marks at 220 and 240; counts
      zeroed just before, read right after; the saved directory (PLY, env PLY,
-     mesh) served through scripts/eval_torch.py;
+     mesh) served through scripts/eval_torch.py; then 10 steps (201-210)
+     from phase 10's 150k-splat main cloud, whose splats pass the 20-pixel
+     prune, with the main model's densify, prune and opacity reset live
+     (n_alive and s/step printed);
  13. learning check: 30 `surfel2` steps from the same onset (and phase
      12's onset mesh) with densification, resets and mesh re-extraction off
      must raise the train PSNR by >= 0.3 dB;
@@ -79,9 +85,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      captured inputs against their plain versions on every bundle (the
      forward bit for bit), the step's walks and ranges, both kernels' times,
      their plain versions' and their bounds (counted from the plain
-     versions' work); and the Trainer's `surfel2` step (host clock,
-     torch.profiler device-busy share and top kernels, the mesh tracer's
-     device time, peak memory).
+     versions' work); both rasterizer kernels at the same step's inputs
+     (input (iii), S=10) as at (ii); and the Trainer's `surfel2` step (host
+     clock, torch.profiler device-busy share and top kernels, the mesh
+     tracer's device time, peak memory).
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -148,6 +155,11 @@ TRAIN_TEST_MARKS = (30, 60)
 S2_FROM = 50
 S2_START, S2_END = 200, 240
 S2_TEST_MARKS = (220, 240)
+# The densify run inside surfel2 (phase 12): 201-210 holds the densify and
+# prune at 205 and 210 and the opacity reset at 210 (intervals 5 and 30 at
+# --schedule_scale 0.01). It stops at the reset: the steps after it ask the
+# env trace for 50-60M pairs more than its 67M cap.
+S2_DENSIFY_END = 210
 W = H = 800
 N_VIEWS = 8
 P_SPLATS = 150_000
@@ -191,8 +203,12 @@ def bench_scene(np, P=P_SPLATS, seed=0):
 
 
 def compare_tiles(np, out, ref, S, lay):
-    """Max abs error per output group; raises past the tolerance or on any
-    contributor-index mismatch. Returns the largest error over all groups."""
+    """Max abs error per output group; raises past the tolerance, on any
+    contributor-index mismatch or on any value that differs (the forward is
+    bit-identical to its plain version). Returns the largest error over all
+    groups."""
+    n_diff = int(np.sum(out != ref))
+    print(f"    bit-identical to the plain version: {n_diff == 0} ({n_diff} values differ)")
     worst = 0.0
     for name, tol in TOLS.items():
         lo, hi = lay[name]
@@ -208,6 +224,7 @@ def compare_tiles(np, out, ref, S, lay):
         print(f"    {name:13s} mismatches {n_bad}")
         check(n_bad == 0, f"S={S} {name} differs on {n_bad} pixels")
     check(bool(np.all(out[..., lay["_channels"]:] == 0.0)), "padding channels not zero")
+    check(n_diff == 0, f"S={S}: the forward kernel differs from its plain version on {n_diff} values")
     return worst
 
 
@@ -222,14 +239,15 @@ def compare_grads(np, torch, out, ref, S):
     """Max abs error per gradient row group of the backward, beside the
     group's median, 99th percentile and largest magnitude; raises where a
     value is outside the per-value tolerance (BWD_RTOL above) or on a
-    non-finite value. Returns the largest error over all groups."""
+    non-finite value. Returns the largest error and the largest err/tol over
+    all groups."""
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, ROW_MEAN2D, ROW_OPACITY, ROW_TU, ROW_TV, ROW_TW
 
     groups = {"dTu": (ROW_TU, ROW_TV), "dTv": (ROW_TV, ROW_TW), "dTw": (ROW_TW, ROW_MEAN2D),
               "dmean2d": (ROW_MEAN2D, ROW_OPACITY), "dopacity": (ROW_OPACITY, ROW_LIN),
               "dlin": (ROW_LIN, out.shape[1])}
     check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(ref).all()), f"S={S}: non-finite gradients")
-    worst = 0.0
+    worst, worst_ratio = 0.0, 0.0
     for name, (lo, hi) in groups.items():
         a, b = out[:, lo:hi], ref[:, lo:hi]
         diff = (a - b).abs()
@@ -237,14 +255,15 @@ def compare_grads(np, torch, out, ref, S):
         med, pct = magnitude_quantile(torch, b, 0.5), magnitude_quantile(torch, b, BWD_PCT)
         biggest = float(b.abs().max())
         tol = BWD_RTOL * torch.clamp(b.abs() + pct, max=biggest) + BWD_ATOL
-        worst_ratio = float((diff / tol).max())
-        ok = worst_ratio <= 1.0
+        ratio = float((diff / tol).max())
+        ok = ratio <= 1.0
         print(f"    {name:9s} max|err| {err:.3e}  |grad| median {med:.3e}, p99 {pct:.3e}, "
-              f"max {biggest:.3e}; largest err/tol {worst_ratio:.3e}  "
+              f"max {biggest:.3e}; largest err/tol {ratio:.3e}  "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"S={S} backward {name} outside tolerance")
-        worst = max(worst, err)
-    return worst
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    print(f"    backward: largest err/tol over all groups {worst_ratio:.3e}")
+    return worst, worst_ratio
 
 
 def cuda_ms(torch, fn, reps):
@@ -511,6 +530,98 @@ def capture_trace(torch, tracer_api, fn):
     return captured
 
 
+def capture_raster(torch, api_mod, fn):
+    """Run fn() and return the (inputs, kwargs) of every rasterizer backward
+    call it makes through _RenderPairs: (payload cut to the columns its
+    tiles use, tile_start, tile_count, tile_active, forward output,
+    cotangent), copied. The forward kernel's inputs are the first three."""
+    captured = []
+    real = api_mod.rasterize_tiles_bwd
+
+    def wrapper(payload, ts, tc, ta, fo, cot, **kw):
+        used = payload[:, : int(ts[-1]) + 1].clone().contiguous()
+        captured.append(((used, ts.clone(), tc.clone(), ta.clone(), fo.clone(), cot.clone()), dict(kw)))
+        return real(payload, ts, tc, ta, fo, cot, **kw)
+
+    api_mod.rasterize_tiles_bwd = wrapper
+    try:
+        fn()
+    finally:
+        api_mod.rasterize_tiles_bwd = real
+    return captured
+
+
+def raster_at(np, torch, what, cap):
+    """Both rasterizer kernels at one training step's captured inputs: the
+    forward against its plain version bit for bit (and against the step's own
+    output), the backward on the step's own forward output and cotangent
+    against its plain version per value; each kernel's time (CUDA events),
+    its plain version's (timed in its comparison run) and its bound, counted
+    from the plain versions' outcomes: operations as in phases 5 and 9, and
+    bytes over the payload columns this data needs (each tile's pairs up to
+    its last contributor, read once) and the outputs (written once; the
+    backward's holds a row for every pair). One launch of each per training
+    step. Returns the numbers."""
+    from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd
+    from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, acc_channels, out_layout
+
+    (pp, ts, tc, ta, fo_step, cot), kw = cap
+    S = kw["S"]
+    lay = out_layout(S)
+    fo = tiles_fwd.rasterize_tiles_fwd(pp, ts, tc, **kw)
+    torch.cuda.synchronize()
+    res = {}
+    f_plain = cuda_ms(torch, lambda: res.update(ref=tiles_fwd.rasterize_tiles_fwd_plain(pp, ts, tc, **kw)), 1)
+    ref = res.pop("ref")
+    n_diff = int((fo != ref).sum())
+    f_err = float((fo - ref).abs().max())
+    del ref
+    print(f"  rasterizer at {what}: {int(ts[-1])} pairs, S={S}; tile_count median/p99/max "
+          f"{int(tc.median())}/{int(torch.quantile(tc.float(), 0.99))}/{int(tc.max())}, tile_active median/p99/max "
+          f"{int(ta.median())}/{int(torch.quantile(ta.float(), 0.99))}/{int(ta.max())}")
+    print(f"    forward vs plain: bit-identical {n_diff == 0} ({n_diff} values differ)")
+    check(n_diff == 0, f"{what}: the forward kernel differs from its plain version on {n_diff} values")
+    check(torch.equal(fo, fo_step), f"{what}: the forward kernel gave the step another output on the same inputs")
+    out = tiles_bwd.rasterize_tiles_bwd(pp, ts, tc, ta, fo_step, cot, **kw)
+    torch.cuda.synchronize()
+    work = {}
+    b_plain = cuda_ms(torch, lambda: res.update(ref=tiles_bwd.rasterize_tiles_bwd_plain(
+        pp, ts, tc, ta, fo_step, cot, **kw, work=work)), 1)
+    b_err, b_ratio = compare_grads(np, torch, out, res.pop("ref"), S)
+    del out
+    fwd_fn = lambda: tiles_fwd.rasterize_tiles_fwd(pp, ts, tc, **kw)  # noqa: E731
+    bwd_fn = lambda: tiles_bwd.rasterize_tiles_bwd(pp, ts, tc, ta, fo_step, cot, **kw)  # noqa: E731
+    for fn in (fwd_fn, bwd_fn, fwd_fn, bwd_fn):
+        fn()
+    f_ms, b_ms = cuda_ms(torch, fwd_fn, 10), cuda_ms(torch, bwd_fn, 10)
+    n_p = int(ts[-1])
+    T_ = kw["grid_x"] * kw["grid_y"]
+    c_out = fo.shape[-1]
+    walked = float(fo[..., lay["n_contrib"][0]].sum())
+    cols = int(torch.minimum(ta, tc).long().sum())
+    nrow = ROW_LIN + acc_channels(S)
+    nums = {}
+    for name, n_bytes, flops in (
+        ("fwd", 4 * (cols * nrow + T_ * 256 * c_out + 2 * T_ + 1), HIT_TEST_FLOPS * walked),
+        ("bwd", 4 * ((cols + n_p) * nrow + 2 * T_ * 256 * c_out + 3 * T_ + 1),
+         bwd_flops(S, walked, work["pass3d"], work["pass2d"])),
+    ):
+        tb_, to_ = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        nums[name] = dict(bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations", tb=tb_, to=to_,
+                          bytes=n_bytes, flops=flops)
+    nums["fwd"].update(ms=f_ms, plain_ms=f_plain, err=f_err)
+    nums["bwd"].update(ms=b_ms, plain_ms=b_plain, err=b_err, ratio=b_ratio)
+    for name in ("fwd", "bwd"):
+        b = nums[name]
+        print(f"    {name} kernel {b['ms']:.4f} ms, 1 launch per training step; bound {b['bound']:.4f} ms (by "
+              f"{b['by']}: {b['bytes'] / 1e6:.1f} MB -> {b['tb']:.4f} ms, {b['flops'] / 1e9:.2f} GFLOP -> "
+              f"{b['to']:.4f} ms), kernel at {100 * b['bound'] / b['ms']:.1f} % of it; plain version "
+              f"{b['plain_ms']:.1f} ms (timed in its comparison run)")
+    print(f"    {walked:.0f} (pixel, position) in contributor ranges; passing the hit test {work['pass3d']} (3D) + "
+          f"{work['pass2d']} (2D); {cols} pair columns up to the tiles' last contributors")
+    return nums
+
+
 def pow2_at_least(n):
     return 1 << max(int(math.ceil(n)) - 1, 1).bit_length()
 
@@ -595,7 +706,8 @@ def main() -> int:
 
     def run_bwd(ti, counts=None, seed=0):
         """The backward kernel and its plain version on the forward's output
-        and a random cotangent; returns (max error, the kernel's inputs)."""
+        and a random cotangent; returns (max error, largest err/tol, the
+        kernel's inputs)."""
         counts = ti.bins.tile_count if counts is None else counts
         kw = dict(S=ti.S, grid_x=ti.grid_x, grid_y=ti.grid_y, W=ti.W, H=ti.H)
         fwd = kernel_fn(ti.payload, ti.bins.tile_start, counts, **kw)
@@ -615,7 +727,7 @@ def main() -> int:
               f"{work['pass3d']} (3D) + {work['pass2d']} (2D)")
         print(f"    tolerance per value: {BWD_RTOL:g} x min(|grad| + the group's p99 |grad|, "
               f"the group's max |grad|) + {BWD_ATOL:g}")
-        return compare_grads(np, torch, out, ref, ti.S), (bargs, kw, work)
+        return (*compare_grads(np, torch, out, ref, ti.S), (bargs, kw, work))
 
     from materialrefgs_torch.cameras import look_at_camera
 
@@ -656,7 +768,7 @@ def main() -> int:
     out, ref, (full_args, full_kw) = run_both(full)
     print(f"  whole 800x800 view: {int(full.bins.num_pairs)} pairs")
     full_err = compare_tiles(np, out, ref, 9, lay9)
-    bwd_err, bwd9 = run_bwd(full, seed=800)
+    bwd_err, bwd_ratio, bwd9 = run_bwd(full, seed=800)
     n_contrib_sum = float(out[..., lay9["n_contrib"][0]].sum())
     plain_ms = cuda_ms(torch, lambda: tiles_fwd.rasterize_tiles_fwd_plain(*full_args, **full_kw), 2)
 
@@ -951,7 +1063,7 @@ def main() -> int:
             t["xyz"], torch.exp(t["scaling"]), t["rotation"], torch.sigmoid(t["opacity"][:, 0]),
             colors, feats9[:, :1], full_cam, config=api.RasterizeConfig(pair_capacity=PAIR_CAPACITY),
         )
-    _, bwd1 = run_bwd(full1, seed=801)
+    _, _, bwd1 = run_bwd(full1, seed=801)
     bwd_times = {}
     for S, (bargs, bkw, work) in ((9, bwd9), (1, bwd1)):
         for _ in range(3):
@@ -1045,6 +1157,12 @@ def main() -> int:
         print("  top device kernels (ms per step, launches per step):")
         for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  {e.self_device_time_total / 1e3 / 3:9.3f}  {e.count // 3:5d}  {e.key[:90]}")
+    # Input (ii): one more step of the compressed-reset state (no pixel stops
+    # early after the opacity resets, so every walk runs its tile's list).
+    cap_ii = capture_raster(torch, api, lambda: time_steps(trainer, "surfel", TRAIN_ITERS + 10, 1))
+    check(len(cap_ii) == 1, f"one surfel step launched the rasterizer backward {len(cap_ii)} times")
+    raster_ii = raster_at(np, torch, "input (ii), a surfel step after iteration 60", cap_ii[0])
+    del cap_ii
 
     # ----------------------------------------------------------------- 10 --
     phase("10. serve a full-width env-GS (surfel2) refnerf checkpoint through scripts/eval_torch.py")
@@ -1436,6 +1554,40 @@ def main() -> int:
     s2_wall = sorted(b["wall"] - a["wall"] for a, b in zip(s2_log, s2_log[1:]) if b["renders_redone"] == 0)
     print(f"  host s/step during the run (median of the steps without a redo): {s2_wall[len(s2_wall) // 2]:.3f}")
 
+    # The main model's densify, prune and opacity reset inside surfel2 (the
+    # run above holds them off), from phase 10's main cloud: phase 4's model,
+    # which rendered the train views, with its splats turned to lie in the
+    # shell. Its splats pass the 20-pixel screen-size prune, and its smooth
+    # normals keep the env trace within the tracer's budget (phase 4's random
+    # orientations ask for 95-126M env-trace pairs a step, past the 67M cap).
+    d_run = os.path.join(work_dir, "surfel2_densify_run")
+    d_start = os.path.join(work_dir, "surfel2_densify_start")
+    gaussian_io.save_ply(s2_model, os.path.join(d_start, "point_cloud.ply"), env1=env)
+    d_argv = ["-s", train_scene, "-m", d_run, "--schedule_scale", "0.01", "--start_ply", d_start,
+              "--start_iter", str(S2_START), "--iterations", str(S2_DENSIFY_END), "--capacity", str(1 << 19),
+              "--pair_capacity", str(1 << 20), "--log_every", "1"]
+    print("  python scripts/train_torch.py " + " ".join(d_argv))
+    t0 = time.perf_counter()
+    d_res = train_torch.main(d_argv)
+    torch.cuda.synchronize()
+    d_s = time.perf_counter() - t0
+    d_log = d_res["trainer"].metrics_log
+    d_alive = [m["n_alive"] for m in d_log]
+    d_wall = sorted(b["wall"] - a["wall"] for a, b in zip(d_log, d_log[1:]) if b["renders_redone"] == 0)
+    print(f"  densify run: {len(d_log)} steps in {d_s:.1f} s, n_alive per step {d_alive} (start {P_SPLATS}); "
+          f"host s/step (median of the steps without a redo) {d_wall[len(d_wall) // 2]:.3f}; mean opacity "
+          f"after the run {float(d_res['trainer'].state.model.get_opacity[d_res['trainer'].state.model.alive].mean()):.4f}")
+    check([m["iteration"] for m in d_log] == list(range(S2_START + 1, S2_DENSIFY_END + 1)),
+          "the densify run skipped iterations")
+    check(all(m["stage"] == "surfel2" for m in d_log), "a step of the densify run is not surfel2")
+    check(len(set(d_alive)) > 1 and min(d_alive) > P_SPLATS // 2,
+          "densify and prune inside surfel2 left n_alive unchanged or pruned most of the model")
+    check(all(m["overflow"] == 0 and m["tracer_overflow"] == 0 and m["mesh_cull_dropped"] == 0 for m in d_log),
+          "a step of the densify run was applied truncated")
+    check(all(math.isfinite(m["loss"]) for m in d_log), "non-finite loss in the densify run")
+    for name, prm in d_res["trainer"].state.params().items():
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after the densify run")
+
     # ----------------------------------------------------------------- 13 --
     phase("13. learning check: 30 full-width surfel2 steps, densification, resets and re-extraction off")
     _, s2pipe, s2opt = cfg.preset_refnerf()
@@ -1492,11 +1644,13 @@ def main() -> int:
     it_next = S2_START + 31
     tapi_mod.trace_bundles_bwd = capturing_bwd
     torch.cuda.reset_peak_memory_stats()
+    step_walls = []
     try:
         with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
-            prof_ms = 1e3 * time_steps(ltr2, "surfel2", it_next, 1)[0]
+            cap_iii = capture_raster(torch, api, lambda: step_walls.extend(time_steps(ltr2, "surfel2", it_next, 1)))
+        prof_ms = 1e3 * step_walls[0]
     finally:
         tapi_mod.trace_bundles_bwd = real_bwd
     peak2 = torch.cuda.max_memory_allocated() / 2**30
@@ -1560,6 +1714,9 @@ def main() -> int:
           f"{fwork['contribs']} composited, {fwork['sort_compares']:.0f} sort compares); kernel at "
           f"{100 * f_bound / f_ms:.1f} % of it")
     del step_cap, sargs, fargs
+    check(len(cap_iii) == 1, f"one surfel2 step launched the rasterizer backward {len(cap_iii)} times")
+    raster_iii = raster_at(np, torch, f"input (iii), surfel2 training step {it_next}", cap_iii[0])
+    del cap_iii
 
     # Host time per step: the learning check's steps (the Trainer's log
     # stamps each step's end), without its first.
@@ -1598,7 +1755,7 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
             "launches": train_fwd,
-            "max_abs_err": full_err,
+            "max_abs_err": max(full_err, raster_ii["fwd"]["err"], raster_iii["fwd"]["err"]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -1611,7 +1768,7 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
             "launches": train_bwd,
-            "max_abs_err": bwd_err,
+            "max_abs_err": max(bwd_err, raster_ii["bwd"]["err"], raster_iii["bwd"]["err"]),
             "ms": bwd_times[9]["ms"],
             "plain_ms": plain_bwd_ms,
             "bound_ms": bwd_times[9]["bound"],
@@ -1649,6 +1806,16 @@ def main() -> int:
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
           + f"); surfel2 training path launches: {s2_launches}")
+    print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (ii) "
+          f"{raster_ii['fwd']['ms']:.4f} ms (bound {raster_ii['fwd']['bound']:.4f}, plain "
+          f"{raster_ii['fwd']['plain_ms']:.1f}); (iii) {raster_iii['fwd']['ms']:.4f} ms (bound "
+          f"{raster_iii['fwd']['bound']:.4f}, plain {raster_iii['fwd']['plain_ms']:.1f}); bit-identical at all three")
+    print(f"rasterizer backward: input (i) {bwd_times[9]['ms']:.4f} ms (bound {bwd_times[9]['bound']:.4f}, plain "
+          f"{plain_bwd_ms:.1f}, largest err/tol {bwd_ratio:.3e}); (ii) {raster_ii['bwd']['ms']:.4f} ms (bound "
+          f"{raster_ii['bwd']['bound']:.4f}, plain {raster_ii['bwd']['plain_ms']:.1f}, largest err/tol "
+          f"{raster_ii['bwd']['ratio']:.3e}); (iii) {raster_iii['bwd']['ms']:.4f} ms (bound "
+          f"{raster_iii['bwd']['bound']:.4f}, plain {raster_iii['bwd']['plain_ms']:.1f}, largest err/tol "
+          f"{raster_iii['bwd']['ratio']:.3e})")
     ring = trace_times[TRACE_ROW]
     print(f"tracer forward at ring view 0's env trace: {ring['ms']:.3f} ms, bound {ring['bound']:.4f} ms "
           f"({ring['by']}), plain {ring['plain_ms']:.1f} ms; at the surfel2 step: {f_ms:.4f} ms, bound "

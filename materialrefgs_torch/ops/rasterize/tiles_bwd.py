@@ -4,7 +4,9 @@
 rasterize_tiles_bwd. On a CUDA tensor it launches the hand-written kernel in
 `csrc/rasterize_bwd.cu` (built with nvcc for sm_90a at first use) or raises;
 on a CPU tensor it runs `rasterize_tiles_bwd_plain`, the same computation in
-plain torch. The kernel's design and its bound are described in the source.
+plain torch. The kernel's design and its bound are described in the source:
+blocks take tiles longest walk first, and the forward's exact prefilter
+skips the tests that cannot pass.
 
 Inputs: the forward's payload (C_PAD(S), n_cols), tile_start (T+1,) and
 tile_count (T,) int32; tile_active (T,) int32, the largest n_contrib of each
@@ -41,7 +43,13 @@ from materialrefgs_torch.ops.rasterize.layout import (
     out_channels_padded,
     out_layout,
 )
-from materialrefgs_torch.ops.rasterize.tiles_fwd import MAX_S, _check_inputs
+from materialrefgs_torch.ops.rasterize.tiles_fwd import (
+    MAX_S,
+    _check_inputs,
+    longest_first,
+    prefilter_bound,
+    prefilter_skip,
+)
 
 SOURCE = nvcc.CSRC / "rasterize_bwd.cu"
 
@@ -56,6 +64,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # tile_start
         ctypes.c_void_p,  # tile_count
         ctypes.c_void_p,  # tile_active
+        ctypes.c_void_p,  # order (block -> tile)
         ctypes.c_void_p,  # fwd_out
         ctypes.c_void_p,  # cotangent
         ctypes.c_void_p,  # dpair
@@ -122,11 +131,12 @@ def rasterize_tiles_bwd(
     dpair = torch.zeros(
         (payload.shape[1], grad_rows(S)), dtype=torch.float32, device=payload.device
     )
+    order = longest_first(tile_active)
     stream = torch.cuda.current_stream(payload.device).cuda_stream
     err = _library().rasterize_tiles_bwd(
         payload.data_ptr(), payload.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-        tile_active.data_ptr(), fwd_out.data_ptr(), cotangent.data_ptr(), dpair.data_ptr(),
-        S, grid_x, grid_y, stream,
+        tile_active.data_ptr(), order.data_ptr(), fwd_out.data_ptr(), cotangent.data_ptr(),
+        dpair.data_ptr(), S, grid_x, grid_y, stream,
     )
     if err != 0:
         raise RuntimeError(f"rasterize_tiles_bwd kernel launch failed with CUDA error {err}")
@@ -151,12 +161,16 @@ def rasterize_tiles_bwd_plain(
     W: int,
     H: int,
     work: dict | None = None,
+    tile_order: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's computation in plain torch on any device: vectorized over
     tiles and pixels, one step per pair position walking back to front, with
     the JAX kernel's (and the CUDA kernel's) per-(pixel, pair) arithmetic.
     The gradient is derived by hand, not by autograd of the forward: the
-    alpha clamp passes its gradient through, as the kernels' does.
+    alpha clamp passes its gradient through, as the kernels' does. Row i of
+    the work is tile tile_order[i] (default: longest_first, the kernel's
+    blocks); the result does not depend on the permutation. The kernel's
+    prefilter changes no value and is applied here too.
 
     `work`, when given, receives how many (pixel, pair) passed the hit test
     inside the pixel's contributor range, by branch: "pass3d" (ray-splat
@@ -173,11 +187,14 @@ def rasterize_tiles_bwd_plain(
     if num_tiles == 0:
         return dpair
 
-    t = torch.arange(num_tiles, device=dev)[:, None]
+    order = (longest_first(tile_active) if tile_order is None else tile_order).to(torch.int64)
+    t = order[:, None]
     pid = torch.arange(PIX, device=dev)[None, :]
     pix_x = ((t % grid_x) * TILE + pid % TILE).to(torch.float32)
     pix_y = (torch.div(t, grid_x, rounding_mode="floor") * TILE
              + torch.div(pid, TILE, rounding_mode="floor")).to(torch.float32)
+
+    fwd_out, cotangent = fwd_out[order], cotangent[order]
 
     def ch(x, name):
         return x[..., lay[name][0]]
@@ -197,8 +214,8 @@ def rasterize_tiles_bwd_plain(
     dMed = ch(cotangent, "median_depth")
     dTfin = ch(cotangent, "final_T")
 
-    start = tile_start[:num_tiles].to(torch.int64)
-    active = torch.minimum(tile_active, tile_count).to(torch.int64)
+    start = tile_start[:num_tiles].to(torch.int64)[order]
+    active = torch.minimum(tile_active, tile_count).to(torch.int64)[order]
     rows = payload[:NG]
     last_col = max(payload.shape[1] - 1, 0)
     zero = torch.zeros((), **f32)
@@ -227,14 +244,14 @@ def rasterize_tiles_bwd_plain(
         px = ky * lz - kz * ly
         py = kz * lx - kx * lz
         pz = kx * ly - ky * lx
-        pz_ok = pz != 0.0
+        d1 = pay[ROW_MEAN2D] - pix_x
+        d2 = pay[ROW_MEAN2D + 1] - pix_y
+        rho2d = FILTER_INV_SQUARE * (d1 * d1 + d2 * d2)
+        pz_ok = (pz != 0.0) & ~prefilter_skip(px, py, pz, rho2d, prefilter_bound(opa))
         pz_safe = torch.where(pz_ok, pz, one)
         s1 = px / pz_safe
         s2 = py / pz_safe
         rho3d = s1 * s1 + s2 * s2
-        d1 = pay[ROW_MEAN2D] - pix_x
-        d2 = pay[ROW_MEAN2D + 1] - pix_y
-        rho2d = FILTER_INV_SQUARE * (d1 * d1 + d2 * d2)
         use3d = rho3d <= rho2d
         rho = torch.minimum(rho3d, rho2d)
         depth = torch.where(use3d, s1 * twx + s2 * twy + twz, twz.expand_as(s1))

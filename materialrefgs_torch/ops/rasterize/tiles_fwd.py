@@ -4,7 +4,10 @@
 rasterize_tiles_fwd. On a CUDA tensor it launches the hand-written kernel in
 `csrc/rasterize_fwd.cu` (built with nvcc for sm_90a at first use) or raises;
 on a CPU tensor it runs `rasterize_tiles_fwd_plain`, the same computation in
-plain torch. The kernel's design and its bound are described in the source.
+plain torch. The kernel's design and its bound are described in the source:
+blocks take tiles longest list first (`longest_first`, a device argsort), and
+an exact prefilter (`prefilter_skip`) drops the (pixel, pair) whose alpha is
+provably below 1/255 before the divisions.
 
 Inputs (the JAX kernel's): payload (C_PAD(S), n_cols) float32, one column per
 depth-sorted (tile, gaussian) pair; tile_start (T+1,) int32 raw offsets;
@@ -42,6 +45,7 @@ from materialrefgs_torch.ops.rasterize.layout import (
 )
 
 SOURCE = nvcc.CSRC / "rasterize_fwd.cu"
+PZ2_MIN = 1e-30  # below it the prefilter defers to the exact path
 # Feature widths the kernels are instantiated for: 1..MAX_S (render_surfel2
 # rasterizes 10: refl, rough, ori_color(3), indirect(3), blend, distance).
 MAX_S = 10
@@ -56,6 +60,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong,  # payload row stride (columns)
         ctypes.c_void_p,  # tile_start
         ctypes.c_void_p,  # tile_count
+        ctypes.c_void_p,  # order (block -> tile)
         ctypes.c_void_p,  # out
         ctypes.c_int,  # S
         ctypes.c_int,  # grid_x
@@ -66,6 +71,30 @@ def _library() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+def longest_first(lengths: torch.Tensor) -> torch.Tensor:
+    """int32 permutation of the tiles, longest pair walk first (stable): the
+    kernels' block b takes tile order[b], so the longest walks start in the
+    first wave. An argsort on the tensors' device, no host read."""
+    return torch.argsort(lengths, descending=True, stable=True).to(torch.int32)
+
+
+def prefilter_bound(opacity: torch.Tensor) -> torch.Tensor:
+    """The prefilter's bound per pair, 1.001 x 2 ln(255 o) + 1e-3 (at least
+    1e-3): rho above it provably gives alpha < 1/255 (csrc/rasterize_fwd.cu's
+    header argues the margin); NaN for a NaN opacity. The kernels compute it
+    as thr_of, once per staged pair."""
+    tau = 2.0 * torch.log(255.0 * opacity)
+    return torch.where(tau < 0.0, torch.zeros_like(tau), tau) * 1.001 + 1e-3
+
+
+def prefilter_skip(px, py, pz, rho2d, thr):
+    """The kernels' exact prefilter: True where alpha < 1/255 is certain from
+    rho2d and px^2 + py^2 > thr pz^2 (rho3d without the divisions). NaN, pz =
+    0 and pz^2 < 1e-30 are never skipped."""
+    pz2 = pz * pz
+    return (rho2d > thr) & (pz2 >= PZ2_MIN) & (px * px + py * py > thr * pz2)
 
 
 def _check_inputs(payload, tile_start, tile_count, S, num_tiles):
@@ -111,15 +140,18 @@ def rasterize_tiles_fwd(
     payload = payload.contiguous()
     tile_start = tile_start.contiguous()
     tile_count = tile_count.contiguous()
-    if num_tiles and int(tile_start[-1]) > payload.shape[1]:
-        raise ValueError("tile ranges reach past the payload's columns")
+    if num_tiles:
+        # The tile ranges lie inside the payload's columns; checked on the
+        # card without a host sync (a failure is a device-side assert).
+        torch._assert_async(tile_start[-1] <= payload.shape[1])
     out = torch.empty(
         (num_tiles, PIX, out_channels_padded(S)), dtype=torch.float32, device=payload.device
     )
+    order = longest_first(tile_count)
     stream = torch.cuda.current_stream(payload.device).cuda_stream
     err = _library().rasterize_tiles_fwd(
         payload.data_ptr(), payload.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-        out.data_ptr(), S, grid_x, grid_y, W, H, stream,
+        order.data_ptr(), out.data_ptr(), S, grid_x, grid_y, W, H, stream,
     )
     if err != 0:
         raise RuntimeError(f"rasterize_tiles_fwd kernel launch failed with CUDA error {err}")
@@ -140,18 +172,24 @@ def rasterize_tiles_fwd_plain(
     grid_y: int,
     W: int,
     H: int,
+    tile_order: torch.Tensor | None = None,
+    prefilter: bool = True,
 ) -> torch.Tensor:
     """The kernel's computation in plain torch on any device: vectorized over
     tiles and pixels, one step per position in the tiles' pair lists, with
-    the kernel's arithmetic in the kernel's order."""
+    the kernel's arithmetic in the kernel's order. Row i of the work is tile
+    tile_order[i] (default: longest_first, the kernel's blocks); the result
+    is in tile order whatever the permutation. `prefilter` applies the
+    kernel's prefilter, which changes no output."""
     dev = payload.device
     num_tiles = grid_x * grid_y
     _check_inputs(payload, tile_start, tile_count, S, num_tiles)
     ACC = acc_channels(S)
     lay = out_layout(S)
     f32 = dict(dtype=torch.float32, device=dev)
+    order = (longest_first(tile_count) if tile_order is None else tile_order).to(torch.int64)
 
-    t = torch.arange(num_tiles, device=dev)[:, None]
+    t = order[:, None]
     pid = torch.arange(PIX, device=dev)[None, :]
     px_i = (t % grid_x) * TILE + pid % TILE
     py_i = torch.div(t, grid_x, rounding_mode="floor") * TILE + torch.div(pid, TILE, rounding_mode="floor")
@@ -172,8 +210,8 @@ def rasterize_tiles_fwd_plain(
     one = torch.ones((), **f32)
     ndc_scale = FAR_N / (FAR_N - NEAR_N)
 
-    start = tile_start[:num_tiles].to(torch.int64)
-    count = tile_count.to(torch.int64)
+    start = tile_start[:num_tiles].to(torch.int64)[order]
+    count = tile_count.to(torch.int64)[order]
     rows = payload[: ROW_LIN + ACC]
     n_max = int(count.max()) if num_tiles else 0
     last_col = max(payload.shape[1] - 1, 0)
@@ -196,13 +234,15 @@ def rasterize_tiles_fwd_plain(
         py = kz * lx - kx * lz
         pz = kx * ly - ky * lx
         pz_ok = pz != 0.0
+        d1 = pay[ROW_MEAN2D] - pix_x
+        d2 = pay[ROW_MEAN2D + 1] - pix_y
+        rho2d = FILTER_INV_SQUARE * (d1 * d1 + d2 * d2)
+        if prefilter:
+            pz_ok = pz_ok & ~prefilter_skip(px, py, pz, rho2d, prefilter_bound(pay[ROW_OPACITY]))
         pz_safe = torch.where(pz_ok, pz, one)
         s1 = px / pz_safe
         s2 = py / pz_safe
         rho3d = s1 * s1 + s2 * s2
-        d1 = pay[ROW_MEAN2D] - pix_x
-        d2 = pay[ROW_MEAN2D + 1] - pix_y
-        rho2d = FILTER_INV_SQUARE * (d1 * d1 + d2 * d2)
         use3d = rho3d <= rho2d
         rho = torch.minimum(rho3d, rho2d)
         depth = torch.where(use3d, s1 * twx + s2 * twy + twz, twz.expand_as(s1))
@@ -235,6 +275,9 @@ def rasterize_tiles_fwd_plain(
         logT = logT_incl
 
     out = torch.zeros((num_tiles, PIX, out_channels_padded(S)), **f32)
+    acc, depth_acc, m1_acc, m2_acc, dist_acc, med_depth, final_logT, n_contrib, med_idx = (
+        torch.empty_like(x).index_copy_(0, order, x) for x in (
+            acc, depth_acc, m1_acc, m2_acc, dist_acc, med_depth, final_logT, n_contrib, med_idx))
     out[..., :ACC] = acc
     for name, val in (
         ("depth", depth_acc),

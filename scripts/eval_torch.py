@@ -82,7 +82,7 @@ def main(argv=None) -> dict:
     if args.export_material_mesh:
         raise NotImplementedError(
             "--export_material_mesh (bake_vertex_attrs, train/mesh_material.py) "
-            "is not ported yet; it comes with the surfel2 training slice of the port"
+            "is not ported yet; it comes with the mesh-shading slice of the port"
         )
 
     import torch

@@ -139,6 +139,54 @@ def test_rasterize_autograd_launches_both_kernels(cuda_device):
         assert torch.isfinite(g).all()
 
 
+def _hard_raster_inputs(case, device):
+    """Inputs the redesigned rasterizer kernels must handle: one tile whose
+    list is thousands of pairs long (splats piled on the image centre), or
+    every splat at opacity 0.01 (after an opacity reset: no pixel stops, so
+    every walk runs the whole list and nearly every test fails alpha)."""
+    rng = np.random.default_rng(41 if case == "long_tile" else 42)
+    P, S = 6000, 10
+    means = rng.normal(size=(P, 3)) * (0.02 if case == "long_tile" else 0.6)
+    opac = rng.uniform(0.01, 0.05, P) if case == "long_tile" else np.full(P, 0.01)
+    arrays = (means, np.exp(rng.normal(size=(P, 2)) * 0.5 - 2.0), rng.normal(size=(P, 4)), opac,
+              rng.uniform(size=(P, 3)), rng.uniform(size=(P, S)))
+    cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
+                         0.9, 0.7, 256, 192, device=device)
+    ti = api.tile_inputs(*[torch.tensor(a, dtype=torch.float32, device=device) for a in arrays], cam,
+                         config=api.RasterizeConfig(pair_capacity=1 << 20))
+    assert int(ti.bins.overflow) == 0
+    kw = dict(S=S, grid_x=ti.grid_x, grid_y=ti.grid_y, W=256, H=192)
+    return (ti.payload, ti.bins.tile_start, ti.bins.tile_count), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long_tile", "post_reset"])
+def test_rasterize_kernels_match_plain_on_long_walks(cuda_device, case):
+    """Both rasterizer kernels against their plain versions where the walks
+    are long: the forward bit for bit, the backward per value (the rule of
+    test_rasterize_bwd_kernel_matches_plain)."""
+    args, kw = _hard_raster_inputs(case, cuda_device)
+    counts = args[2]
+    if case == "long_tile":
+        assert int(counts.max()) > 2000 and int(counts.max()) > 10 * float(counts.float().mean())
+    out = tiles_fwd.rasterize_tiles_fwd(*args, **kw)
+    ref = tiles_fwd.rasterize_tiles_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    lay = out_layout(kw["S"])
+    active = torch.amax(out[..., lay["n_contrib"][0]], dim=1).to(torch.int32)
+    if case == "post_reset":
+        assert int(active.max()) > 500 and bool((out[..., lay["final_T"][0]] > 1e-4).all())
+    cot = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(3))
+    cot[..., lay["_channels"]:] = 0.0
+    bargs = (*args, active, out, cot)
+    got = tiles_bwd.rasterize_tiles_bwd(*bargs, **kw).cpu().numpy()
+    want = tiles_bwd.rasterize_tiles_bwd_plain(*bargs, **kw).cpu().numpy()
+    assert np.all(np.isfinite(got))
+    for lo, hi in ((0, 9), (9, 11), (11, 12), (12, got.shape[1])):
+        assert _per_value_ok(got[:, lo:hi], want[:, lo:hi]) <= 1.0, (lo, hi)
+
+
 def _trace_scene(seed, device, P=4000, NB=12):
     """Surfels in front of 12 coherent ray bundles looking down +z; bundle 3
     is masked (an empty segment) and bundles 8-11 look into an opaque core

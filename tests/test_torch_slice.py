@@ -186,8 +186,8 @@ def test_eval_end_to_end_matches_jax(tmp_path, monkeypatch, same_texel_grid):
 
 
 def _setup_env_cloud(root):
-    """An env-GS checkpoint is served now (tests/test_torch_envgs.py); the
-    material-mesh export beside it waits for the surfel2 training slice."""
+    """An env-GS (surfel2) checkpoint is served now (tests/test_torch_envgs.py);
+    the material-mesh export beside it waits for the mesh-shading slice."""
     d = root / "point_cloud" / "iteration_5"
     d.mkdir(parents=True)
     (d / "env_point_cloud.ply").write_bytes(b"")
@@ -217,7 +217,7 @@ def _setup_colmap(root):
     [
         (lambda root: ["--relight", "x.hdr"], "relight"),
         (lambda root: ["--export_material_mesh"], "mesh"),
-        (_setup_env_cloud, "surfel2"),
+        pytest.param(_setup_env_cloud, "mesh-shading", id="_setup_env_cloud-surfel2"),
         (_setup_volume_stage, "volume"),
         (_setup_colmap, "COLMAP"),
     ],

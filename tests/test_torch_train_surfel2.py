@@ -40,6 +40,7 @@ from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd  # noqa: E402
 from materialrefgs_torch.ops.tracer.api import TracerConfig as TTracer  # noqa: E402
 from materialrefgs_torch.train import mesh_extract as tme  # noqa: E402
 from materialrefgs_torch.render.shading import camera_rays_world  # noqa: E402
+from materialrefgs_torch.train import losses as tlosses  # noqa: E402
 from materialrefgs_torch.train import trainer as ttr  # noqa: E402
 from materialrefgs_torch.utils.transforms import normalize, reflect  # noqa: E402
 from test_torch_envgs import _jax_texel_grid, _mesh, _models  # noqa: E402
@@ -126,12 +127,54 @@ def _env_kink_gaussians(tstep, ts, camera, extra, mesh):
     return torch.nonzero(g.abs().sum(-1) > 0)[:, 0].tolist(), int(kink.sum())
 
 
-@pytest.mark.parametrize("visibility", ["mesh_exact", "splat_list"])
-def test_surfel2_step_matches_jax(visibility, monkeypatch):
+def _normal_kink_sensitivity(tstep, ts, camera, extra, mesh, gt, lam):
+    """How far float32 rounding can move each main gaussian's gradient
+    through the normal-consistency loss mean(w |sn - rn|), per parameter
+    leaf it reaches, and how many components of sn - rn lie at its kink.
+
+    Where one flat surfel covers a pixel, its surf_normal (from the depth
+    map's finite differences) and its rend_normal are the same vector up to
+    float32 rounding: components of sn - rn of 1e-9..5e-7 at alphas of
+    0.02-0.33, whose signs the two packages' roundings set independently (at
+    ground-truth seed 3, 36-47 components of 20-24 pixels have opposite
+    signs). d|x|/dx there is +-1, so each such component moves the gradient
+    by up to 2 lam w / (H W) |d(sn - rn)/d param|. At seed 3 one xyz
+    gradient of one gaussian differs by 1.6-2.2e-4 (2-2.6 % of itself, above
+    its 1.4e-4 tolerance) in both visibility modes, and the case passes with
+    lambda_normal_render_depth at 0: the loss's kink, not the port, sets the
+    difference. Returns ({leaf: (P, ...) bound}, number of components within
+    1e-6 of the kink)."""
+    pkg, _ = tstep.render(ts, camera, extra, mesh)
+    d = pkg["surf_normal"] - pkg["rend_normal"]
+    near = (d.detach().abs() <= 1e-6) & (pkg["rend_alpha"].detach() > 0) & (pkg["rend_normal"].detach() != 0)
+    iw = torch.clamp(1.0 - tlosses.get_img_grad_weight(torch.from_numpy(gt)), 0, 1) ** 2
+    leaves = {k: getattr(ts.model, k) for k in ("xyz", "scaling", "rotation", "opacity")}
+    sens = {k: torch.zeros_like(v) for k, v in leaves.items()}
+    for y, x, c in torch.nonzero(near).tolist():
+        grads = torch.autograd.grad(d[y, x, c], list(leaves.values()), retain_graph=True, allow_unused=True)
+        for k, g in zip(leaves, grads):
+            if g is not None:
+                sens[k] += (2.0 * lam * float(iw[y, x]) / (H * W)) * g.abs()
+    return {k: v.detach().numpy() for k, v in sens.items()}, int(near.sum())
+
+
+def _grad_tol(mu_new, mu_old):
+    """_check_grads_and_update's tolerance of one leaf's gradient."""
+    g = (mu_new - 0.9 * mu_old) / 0.1
+    return 2e-3 * max(float(np.abs(g).max()), 1e-3) + 1e-4
+
+
+@pytest.mark.parametrize("visibility, seed", [
+    pytest.param("mesh_exact", 1, id="mesh_exact"), pytest.param("splat_list", 1, id="splat_list"),
+    pytest.param("mesh_exact", 3, id="mesh_exact-seed3"), pytest.param("splat_list", 3, id="splat_list-seed3")])
+def test_surfel2_step_matches_jax(visibility, seed, monkeypatch):
     """One surfel2 step in both packages from the same state (a JAX state
     with env-GS after one warm-up step, carried across, so both Adams are
     live): loss, every gradient leaf of both models (read from the new first
-    moments), the parameters after the update, and both models' statistics."""
+    moments), the parameters after the update, and both models' statistics.
+    The main gaussians under an env-map kink (_env_kink_gaussians) or whose
+    gradient the normal loss's kink can move by half its tolerance
+    (_normal_kink_sensitivity) are left out."""
     monkeypatch.setattr(tcm, "face_dirs", _jax_texel_grid)
     exact = visibility == "mesh_exact"
     _, pipe, opt = jcfg.preset_refnerf()
@@ -147,7 +190,7 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
     verts, faces = _mesh()
     jmesh = jmt.build_mesh(verts, faces) if exact else None
     tmesh = tmt.build_mesh(verts, faces, device="cpu") if exact else None
-    gt = _gt(1)
+    gt = _gt(seed)
     mask = (np.add.outer((np.arange(H) - H / 2) ** 2, (np.arange(W) - W / 2) ** 2) < 13**2).astype(np.float32)
     lam = jtr.normal_loss_weight_schedule(ITERATION, opt)
     jextra = {"iteration": jnp.float32(ITERATION), "lambda_normal_render_depth": jnp.float32(lam),
@@ -168,6 +211,7 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
                                 tracer_cfg=TTracer(**tr_kw))
     skip, n_kink = _env_kink_gaussians(tstep, ts, tc, textra, tmesh)
     assert n_kink <= 2 and len(skip) <= 16, (n_kink, skip)  # one or two pixels and the gaussians under them
+    nsens, n_near = _normal_kink_sensitivity(tstep, ts, tc, textra, tmesh, gt, lam)
     launches = (trace_fwd.trace_bundles_fwd.launches, trace_bwd.trace_bundles_bwd.launches)
     tmet = tstep(ts, tc, torch.from_numpy(gt), textra, tmesh)
     assert (trace_fwd.trace_bundles_fwd.launches, trace_bwd.trace_bundles_bwd.launches) == launches
@@ -182,10 +226,15 @@ def test_surfel2_step_matches_jax(visibility, monkeypatch):
     assert ts.env_adam.count == int(js.env_gs_opt_state.count) == 2
 
     count = int(js.opt_state.count)
+    jmu = _moments(*js.opt_state.mu)
+    nskip = sorted({int(i) for k, b in nsens.items()
+                    for i in np.nonzero((b.reshape(len(b), -1) > 0.5 * _grad_tol(jmu[k], mu0[k])).any(-1))[0]})
+    assert n_near <= 128 and len(nskip) <= 4, (n_near, nskip)
+    skip = sorted(set(skip) | set(nskip))
     jparams = _moments(js.model.params, js.env1, js.env2)
     tparams = {k: v.detach().numpy() for k, v in ts.params().items()}
     lrs = ttr.param_lrs(topt, 3.0, ts.step - 1, ts.opacity_lr_scale)
-    _check_grads_and_update(mu0, {k: v.numpy() for k, v in ts.adam.mu.items()}, _moments(*js.opt_state.mu),
+    _check_grads_and_update(mu0, {k: v.numpy() for k, v in ts.adam.mu.items()}, jmu,
                             _moments(*js.opt_state.nu), tparams, jparams, lrs, count, 8, "main", skip)
     # The env-GS model: its own Adam, learning rates at the step after the
     # increment, gradients from the trace only.
