@@ -88,13 +88,32 @@ Phases (any failure exits non-zero before the result lines are printed):
      versions' work); both rasterizer kernels at the same step's inputs
      (input (iii), S=10) as at (ii); and the Trainer's `surfel2` step (host
      clock, torch.profiler device-busy share and top kernels, the mesh
-     tracer's device time, peak memory).
+     tracer's device time, peak memory);
+ 15. train refnerf across the warp gate through scripts/train_torch.py on a
+     scene of 24 train views 15 deg apart (every view has neighbours; GT,
+     masks and camera-space normal priors rendered from phase 4's model):
+     (a) from phase 12's iteration_240 (main + env PLY) 30 `surfel2` steps
+     (241-270) across refnerf's gate at 250 (base-colour warp, mesh
+     extracted at the onset, no re-extraction), counts zeroed just before
+     and read just after (the record's launches), s/step on each side of
+     the gate; then the warp's cost as a pair: on (a)'s final state, two
+     views each step with the warp off and on, alternating, every step from
+     the same snapshot of the state (host clock, peak memory), and one
+     profiled step of each kind per view (busy share, top kernels, the
+     rasterizer's launches); (b) 10 `surfel` steps (51-60) from
+     phase 7's iteration_50 PLY with every warp term, virtual cameras, the
+     normal priors (--metric3d_path) and masks mined at 55
+     (--ref_score_path auto): each term non-zero at least once, the mining
+     time and the masks' coverage.
 
-The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+The second-to-last line is the kernels' JSON record (launches from phase 15's
+run (a)); the last line is {"ok": true, "device": {...}}. The script imports
+nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import importlib.util
 import json
@@ -160,6 +179,13 @@ S2_TEST_MARKS = (220, 240)
 # --schedule_scale 0.01). It stops at the reset: the steps after it ask the
 # env trace for 50-60M pairs more than its 67M cap.
 S2_DENSIFY_END = 210
+# The warp phase (15): WARP_VIEWS train views 15 deg apart, so every view has
+# neighbours; run (a) continues phase 12's checkpoint from 240 to WARP_A_END
+# across refnerf's warp gate (25000 x 0.01).
+WARP_VIEWS = 24
+WARP_GATE = 250
+WARP_A_END = 270
+WARP_TERMS = ("loss_warp_geo", "loss_warp_ncc", "loss_warp_bc", "loss_warp_mtl", "loss_warp_rgh")
 W = H = 800
 N_VIEWS = 8
 P_SPLATS = 150_000
@@ -1748,13 +1774,254 @@ def main() -> int:
     print(f"mesh tracer in the surfel2 step (mesh_visibility_map, {int(ltr2.mesh.valid.sum())} triangles, train "
           f"view 0): {mesh_dev2:.2f} ms of device kernels")
 
+    # ----------------------------------------------------------------- 15 --
+    phase("15. train refnerf across the warp gate at full width through scripts/train_torch.py")
+    # Phase 7's 8 views are 1.76 apart, past multi_view_max_dis (1.5): no
+    # view there has a neighbour. This scene puts WARP_VIEWS views 15 deg
+    # apart on the same ring (0.89-1.07 apart), with ground truth and masks
+    # rendered from phase 4's model as phase 7's are, and camera-space
+    # normal priors from the same renders (Metric3D's layout: v/255*2-1).
+    warp_scene = os.path.join(work_dir, "warp_scene")
+    priors_dir = os.path.join(work_dir, "warp_normals")
+    os.makedirs(os.path.join(warp_scene, "train"))
+    os.makedirs(priors_dir)
+    wviews = ring_views(np, WARP_VIEWS, radius=3.4)
+    for split, mats in (("train", wviews), ("test", wviews[:1])):
+        frames = [{"file_path": f"./train/r_{i}", "transform_matrix": m.tolist()} for i, m in enumerate(mats)]
+        with open(os.path.join(warp_scene, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    for i in range(WARP_VIEWS):
+        png.write_png(os.path.join(warp_scene, "train", f"r_{i}.png"), np.zeros((TRAIN_H, TRAIN_W, 4), np.uint8))
+    wscene = Scene.load(dataclasses.replace(mp, source_path=warp_scene), device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i, cam in enumerate(wscene.train_cameras):
+            pkg = render_surfel(model, cam, white, mips, opts)
+            check(int(pkg["overflow"]) == 0, f"warp scene GT view {i} overflows")
+            rgba = torch.cat([pkg["render"], pkg["rend_alpha"]], dim=-1)
+            png.write_png(os.path.join(warp_scene, "train", f"r_{i}.png"),
+                          (np.clip(rgba.cpu().numpy(), 0, 1) * 255 + 0.5).astype(np.uint8))
+            n_cam = pkg["rend_normal"] @ cam.world_view[:3, :3]
+            n_cam = n_cam / torch.clamp(n_cam.norm(dim=-1, keepdim=True), min=1e-6)
+            n_cam = torch.where(pkg["rend_alpha"] > 0.5, n_cam, n_cam.new_tensor([0.0, 0.0, -1.0]))
+            png.write_png(os.path.join(priors_dir, f"r_{i}.png"),
+                          (np.clip((n_cam.cpu().numpy() + 1) / 2, 0, 1) * 255 + 0.5).astype(np.uint8))
+    n_nbr = [len(n) for n in wscene.nearest_ids]
+    print(f"  {WARP_VIEWS} train views 15 deg apart at {TRAIN_W}x{TRAIN_H} (RGBA) and their normal priors written in "
+          f"{time.perf_counter() - t0:.1f} s; neighbours per view: {n_nbr}")
+    check(all(n > 0 for n in n_nbr), "a train view of the warp scene has no neighbour")
+
+    # (a) refnerf as users run it, across the gate (25000 x 0.01 = 250):
+    # phase 12's checkpoint (main + env PLY) on this scene, the onset's env
+    # init skipped (the env PLY), mesh extracted at 241, 30 surfel2 steps.
+    # Cuts: phase 12's (the main model's densify and resets off past 240),
+    # and --mesh_every 1000: no re-extraction in the run (each TSDF over the
+    # 24 views costs about as much as the 30 steps).
+    a_run = os.path.join(work_dir, "warp_run_a")
+    a_start = os.path.dirname(s2_res["ply"])  # phase 12's iteration_240: point_cloud.ply + env_point_cloud.ply
+    a_argv = ["-s", warp_scene, "-m", a_run, "--schedule_scale", "0.01", "--start_ply", a_start,
+              "--start_iter", str(S2_END), "--iterations", str(WARP_A_END), "--capacity", str(1 << 19),
+              "--pair_capacity", str(1 << 20), "--densify_until_iter", str(S2_END), "--mesh_every", "1000",
+              "--log_every", "1"]
+    print("  (a) python scripts/train_torch.py " + " ".join(a_argv))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn):
+        fn.launches = 0  # counts of this path's run only
+    t0 = time.perf_counter()
+    a_res = train_torch.main(a_argv)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    a_launches = {fn.__name__: fn.launches for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn)}
+    a_peak = torch.cuda.max_memory_allocated() / 2**30
+    a_tr = a_res["trainer"]
+    a_log = a_tr.metrics_log
+    gate = WARP_GATE
+    for prev, m in zip([None] + a_log[:-1], a_log):
+        step_s = m["wall"] - prev["wall"] if prev else float("nan")  # the first includes the onset
+        print(f"    it {m['iteration']:3d} {m['stage']:8s} warp_on {m['warp_on']} neighbour {int(m['warp_near']):3d} "
+              f"loss_warp_bc {m.get('loss_warp_bc', float('nan')):.6f} loss {m['loss']:.5f} psnr {m['psnr']:.3f} "
+              f"tracer pairs {m['tracer_pairs']:.0f} renders redone {m['renders_redone']:.0f} s/step {step_s:.4f}")
+    n_a = WARP_A_END - S2_END
+    n_warp = sum(m["warp_on"] for m in a_log)
+    a_redo = sum(m["renders_redone"] for m in a_log)
+    print(f"  (a) {len(a_log)} steps in {a_s:.1f} s; peak device memory {a_peak:.2f} GiB; kernel launches {a_launches}; "
+          f"mesh extractions {[(it, n, round(s, 1)) for it, n, s in a_tr.mesh_log]}")
+    check([m["iteration"] for m in a_log] == list(range(S2_END + 1, WARP_A_END + 1)), "(a) skipped iterations")
+    check(all(m["stage"] == "surfel2" for m in a_log), "a step of (a) is not surfel2")
+    check(all(m["warp_on"] == int(m["iteration"] > gate) for m in a_log),
+          f"(a): the warp did not run on exactly the steps past {gate}")
+    check(all(m["warp_near"] >= 0 and math.isfinite(m["loss_warp_bc"]) and m["loss_warp_bc"] > 0
+              for m in a_log if m["iteration"] > gate), "(a): a step past the gate had no finite, non-zero loss_warp_bc")
+    check(all(m["overflow"] == 0 and m.get("nearest_overflow", 0) == 0 and m["tracer_overflow"] == 0
+              and m["mesh_cull_dropped"] == 0 for m in a_log), "(a): a step was applied truncated")
+    check(all(math.isfinite(m["loss"]) for m in a_log), "(a): non-finite loss")
+    for name, prm in list(a_tr.state.params().items()) + [("env." + k, v) for k, v in a_tr.state.env_params().items()]:
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after (a)")
+    check(a_launches["rasterize_tiles_bwd"] == n_a + n_warp,
+          f"rasterizer backward launched {a_launches['rasterize_tiles_bwd']} times for {n_a} steps, {n_warp} with a "
+          "nearest render")
+    check(a_launches["trace_bundles_bwd"] == n_a, f"tracer backward launched {a_launches['trace_bundles_bwd']} times")
+    check(a_launches["trace_bundles_fwd"] == n_a + a_redo, f"tracer forward launched {a_launches['trace_bundles_fwd']} "
+          f"times for {n_a} steps + {a_redo} redone renders")
+    check(all(n > 0 for n in a_launches.values()), "a kernel of the warp path never launched")
+    a_wall = [(b["iteration"], b["wall"] - a["wall"]) for a, b in zip(a_log, a_log[1:]) if b["renders_redone"] == 0]
+    before = sorted(w for it, w in a_wall if it <= gate)
+    after = sorted(w for it, w in a_wall if it > gate + 1)
+    a_before, a_after = before[len(before) // 2], after[len(after) // 2]
+    print(f"  (a) host s/step, median of the steps without a redo: before the gate {a_before:.4f} "
+          f"({len(before)} steps), past it {a_after:.4f} ({len(after)} steps): the warp adds {a_after - a_before:.4f}")
+
+    # The warp's cost as a pair. (a)'s steps run on different views, whose
+    # env-trace demand moves a step by more than the warp does, so here each
+    # of two views takes a `surfel2` step past the gate with the warp off and
+    # on, alternating, against the same neighbour and pixel scores, each from
+    # the same snapshot of (a)'s final state (restored outside the timing):
+    # host s/step and peak memory per step; then one profiled step of each
+    # kind per view (device-busy share, top kernels, the rasterizer's
+    # launches).
+    snap = copy.deepcopy(a_tr.state)
+    pair_it = WARP_A_END + 1
+    pair_rounds = 3
+
+    def paired_step(cam_id, near_id, warp_on, profile=False):
+        a_tr.state = copy.deepcopy(snap)
+        extra = a_tr._build_extra(pair_it, cam_id)
+        cam = a_tr.cameras[cam_id]
+        if warp_on:
+            extra.update(nearest_camera=a_tr.cameras[near_id], nearest_gt=a_tr.images[near_id],
+                         warp_photo_weight=1.0,
+                         warp_uniforms=torch.rand(cam.height * cam.width, device=dev,
+                                                  generator=torch.Generator(device=dev).manual_seed(cam_id)))
+        step = a_tr._step_fn("surfel2", warp_on)
+        l0 = (kernel_fn.launches, bwd_fn.launches)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ctx = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) if profile else contextlib.nullcontext()
+        with ctx as prof:
+            t1 = time.perf_counter()
+            rendered = step.render(a_tr.state, cam, extra, a_tr.mesh)
+            pkg = rendered[0]
+            over = int(pkg["overflow"]) + int(pkg["nearest_pkg"]["overflow"] if warp_on else 0)
+            over += int(pkg["tracer_overflow"]) + int(pkg["mesh_cull_dropped"])
+            met = step.update(a_tr.state, cam, a_tr.images[cam_id], extra, rendered)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        check(over == 0, f"a paired step (view {cam_id}, warp {warp_on}) overflowed")
+        check(math.isfinite(float(met["loss"])) and (not warp_on or float(met["loss_warp_bc"]) > 0),
+              f"a paired step (view {cam_id}, warp {warp_on}) has no finite loss or base-colour term")
+        out = dict(wall_ms=1e3 * wall, peak=torch.cuda.max_memory_allocated() / 2**30, resident=resident,
+                   fwd=kernel_fn.launches - l0[0], bwd=bwd_fn.launches - l0[1], pairs=int(met["tracer_pairs"]))
+        if profile:
+            ev_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            out["busy_ms"] = sum(e.self_device_time_total for e in ev_) / 1e3
+            out["top"] = [(e.self_device_time_total / 1e3, e.count, e.key[:90])
+                          for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]]
+        return out
+
+    pair_views = (0, WARP_VIEWS // 2)
+    pairs = {}
+    for cam_id in pair_views:
+        near_id = int(a_tr.nearest_ids[cam_id][0])
+        # Warm-up: the Trainer's own steps on the view and on its neighbour
+        # raise, through their redo path, any budget the two renders need.
+        a_tr._order = [near_id, cam_id]
+        for _ in range(2):
+            a_tr._run_step(pair_it, "surfel2")
+        for w in (False, True):
+            paired_step(cam_id, near_id, w)
+        rounds = [[paired_step(cam_id, near_id, w) for w in (False, True)] for _ in range(pair_rounds)]
+        prof_off, prof_on = (paired_step(cam_id, near_id, w, profile=True) for w in (False, True))
+        off = sorted(r[0]["wall_ms"] for r in rounds)
+        on = sorted(r[1]["wall_ms"] for r in rounds)
+        diffs = sorted(r[1]["wall_ms"] - r[0]["wall_ms"] for r in rounds)
+        pk_off = max(r[0]["peak"] for r in rounds)
+        pk_on = max(r[1]["peak"] for r in rounds)
+        pairs[cam_id] = dict(near=near_id, off=off, on=on, diffs=diffs, pk_off=pk_off, pk_on=pk_on,
+                             resident=rounds[0][0]["resident"], prof_off=prof_off, prof_on=prof_on,
+                             pairs=rounds[0][0]["pairs"])
+        print(f"  paired surfel2 steps (iteration {pair_it}) on view {cam_id}, neighbour {near_id}, "
+              f"{rounds[0][0]['pairs']} env-trace pairs; host ms per step, off/on alternating, "
+              f"{pair_rounds} rounds: off {[round(x, 2) for x in off]}, on {[round(x, 2) for x in on]}; "
+              f"on - off per round {[round(x, 2) for x in diffs]} (median {diffs[len(diffs) // 2]:.2f}); "
+              f"peak device memory off {pk_off:.3f} GiB, on {pk_on:.3f} GiB (+{pk_on - pk_off:.3f}) over "
+              f"{rounds[0][0]['resident']:.3f} GiB resident")
+        for label, w in (("warp off", prof_off), ("warp on", prof_on)):
+            print(f"    profiled ({label}): {w['wall_ms']:.2f} ms with {w['busy_ms']:.2f} ms of device kernels -> "
+                  f"device busy {100 * w['busy_ms'] / w['wall_ms']:.1f} %; rasterizer launches forward {w['fwd']}, "
+                  f"backward {w['bwd']}")
+            print("    top device kernels (ms per step, launches per step):")
+            for t, n, key in w["top"]:
+                print(f"    {t:9.3f}  {n:5d}  {key}")
+        check((prof_on["fwd"], prof_on["bwd"]) == (2, 2) and (prof_off["fwd"], prof_off["bwd"]) == (1, 1),
+              f"rasterizer launches per paired step: off {prof_off['fwd']}+{prof_off['bwd']}, "
+              f"on {prof_on['fwd']}+{prof_on['bwd']}")
+    a_tr.state = snap
+    del snap
+    pair_host = sorted(d for v in pairs.values() for d in v["diffs"])
+    pair_dev = [v["prof_on"]["busy_ms"] - v["prof_off"]["busy_ms"] for v in pairs.values()]
+    pair_peak = [v["pk_on"] - v["pk_off"] for v in pairs.values()]
+    pair_busy = {cid: (100 * v["prof_off"]["busy_ms"] / v["prof_off"]["wall_ms"],
+                       100 * v["prof_on"]["busy_ms"] / v["prof_on"]["wall_ms"]) for cid, v in pairs.items()}
+
+    # (b) every term, briefly: 10 `surfel` steps from phase 7's iteration-50
+    # PLY with the geo and NCC terms, the metallic/roughness warps and
+    # virtual cameras, the normal priors (normal_gamma 1 at 51-60), and the
+    # masks mined at 55 at full width (the ref-score loss then runs 56-60).
+    # Cut: --opacity_reset_interval 1000, so no opacity reset and no
+    # 20-pixel screen-size prune (phase 12's reason: this model's splats are
+    # wider); densify keeps running (densify_until_iter stays 300, which
+    # keeps normal_gamma at 1).
+    b_run = os.path.join(work_dir, "warp_run_b")
+    b_argv = ["-s", warp_scene, "-m", b_run, "--schedule_scale", "0.01", "--start_ply", start_dir,
+              "--start_iter", str(S2_FROM), "--iterations", str(S2_FROM + 10), "--capacity", str(1 << 19),
+              "--pair_capacity", str(1 << 20), "--opacity_reset_interval", "1000", "--log_every", "1",
+              "--use_warp_geo_loss", "--use_warp_ncc_loss",
+              "--use_metallic_warp_loss", "--use_roughness_warp_loss", "--use_virtul_cam",
+              "--multi_view_weight_from_iter", str(S2_FROM), "--basecolor_warp_from_iter", str(S2_FROM),
+              "--rghmtl_warp_loss_start_iter", str(S2_FROM), "--metric3d_path", priors_dir,
+              "--ref_score_path", "auto", "--ref_score_start_iter", str(S2_FROM + 5)]
+    print("  (b) python scripts/train_torch.py " + " ".join(b_argv))
+    t0 = time.perf_counter()
+    b_res = train_torch.main(b_argv)
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    b_tr = b_res["trainer"]
+    b_log = b_tr.metrics_log
+    b_keys = WARP_TERMS + ("loss_mono_normal", "loss_ref_score")
+    for m in b_log:
+        print(f"    it {m['iteration']:3d} {m['stage']:7s} neighbour {int(m['warp_near']):3d} "
+              + " ".join(f"{k[5:]} {m.get(k, float('nan')):.3e}" for k in b_keys) + f" loss {m['loss']:.5f}")
+    n_virtual = sum(m["warp_on"] and m["warp_near"] < 0 for m in b_log)
+    print(f"  (b) {len(b_log)} steps in {b_s:.1f} s; virtual-camera steps {n_virtual}"
+          + ("" if n_virtual else " (the rng drew none)"))
+    check([m["iteration"] for m in b_log] == list(range(S2_FROM + 1, S2_FROM + 11)), "(b) skipped iterations")
+    check(all(m["warp_on"] == 1 for m in b_log), "(b): a step did not run the warp")
+    for k in b_keys:
+        check(all(math.isfinite(m[k]) for m in b_log if k in m), f"(b): non-finite {k}")
+        check(any(m.get(k, 0.0) != 0.0 for m in b_log), f"(b): {k} was zero on every step")
+    check(all(m["overflow"] == 0 and m["nearest_overflow"] == 0 for m in b_log), "(b): a step was applied truncated")
+    check(len(b_tr.ref_score_log) == 1, "(b): the masks were not mined once")
+    mine_s, coverage = b_tr.ref_score_log[0]
+    print(f"  mine_ref_scores at full width: {mine_s:.2f} s for {WARP_VIEWS} views; the masks cover "
+          f"{100 * coverage:.2f} % of the pixels")
+    print(f"warp path (phase 15, {smi_line}): (a) host s/step before the gate {a_before:.4f}, past it {a_after:.4f} "
+          f"(different views); paired on views {list(pairs)}: the warp adds host ms per step "
+          f"{[round(x, 2) for x in pair_host]} (median {pair_host[len(pair_host) // 2]:.2f}), device ms "
+          f"{[round(x, 2) for x in pair_dev]}, peak GiB {[round(x, 3) for x in pair_peak]}; busy % off/on "
+          f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in pair_busy.items()} }; rasterizer launches per warp step "
+          f"forward 2, backward 2; mine_ref_scores {mine_s:.2f} s")
+
     record = {"kernels": [
         {
             "name": "rasterize_tiles_fwd",
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
-            "launches": train_fwd,
+            "launches": a_launches["rasterize_tiles_fwd"],
             "max_abs_err": max(full_err, raster_ii["fwd"]["err"], raster_iii["fwd"]["err"]),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1767,7 +2034,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
-            "launches": train_bwd,
+            "launches": a_launches["rasterize_tiles_bwd"],
             "max_abs_err": max(bwd_err, raster_ii["bwd"]["err"], raster_iii["bwd"]["err"]),
             "ms": bwd_times[9]["ms"],
             "plain_ms": plain_bwd_ms,
@@ -1780,7 +2047,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:348",
-            "launches": s2_launches["trace_bundles_fwd"],
+            "launches": a_launches["trace_bundles_fwd"],
             "max_abs_err": max([t["err"] for t in trace_times.values()] + [f_err]),
             "ms": f_ms,
             "plain_ms": f_plain_ms,
@@ -1793,7 +2060,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:586",
-            "launches": s2_launches["trace_bundles_bwd"],
+            "launches": a_launches["trace_bundles_bwd"],
             "max_abs_err": max(tbwd_errs + [s_bwd_err] + ([bwd_ring["err"]] if bwd_ring else [])),
             "ms": s_ms,
             "plain_ms": s_plain_ms,
@@ -1805,7 +2072,8 @@ def main() -> int:
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
-          + f"); surfel2 training path launches: {s2_launches}")
+          + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a), the record's) launches: "
+          f"{a_launches}")
     print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (ii) "
           f"{raster_ii['fwd']['ms']:.4f} ms (bound {raster_ii['fwd']['bound']:.4f}, plain "
           f"{raster_ii['fwd']['plain_ms']:.1f}); (iii) {raster_iii['fwd']['ms']:.4f} ms (bound "

@@ -130,6 +130,24 @@ class Camera:
         y = y.expand(H, W)
         return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
+    def get_K(self, scale: float = 1.0) -> torch.Tensor:
+        """(3, 3) intrinsics at 1/scale resolution (cameras.py:117-125),
+        in float32 arithmetic as the JAX package's."""
+        f, s = np.float32, np.float32(scale)
+        return torch.tensor(
+            [[f(self.fx) / s, 0.0, f(self.cx) / s], [0.0, f(self.fy) / s, f(self.cy) / s], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=self.device,
+        )
+
+    def get_inv_K(self, scale: float = 1.0) -> torch.Tensor:
+        """(3, 3) inverse intrinsics (cameras.py:127-135)."""
+        f, s = np.float32, np.float32(scale)
+        return torch.tensor(
+            [[s / f(self.fx), 0.0, -f(self.cx) / f(self.fx)], [0.0, s / f(self.fy), -f(self.cy) / f(self.fy)],
+             [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=self.device,
+        )
+
 
 def _f32(v) -> float:
     return float(np.float32(v))
@@ -203,3 +221,27 @@ def look_at_camera(
     R = np.stack([right, down, fwd], axis=1)  # cam-to-world rotation
     T = -R.T @ eye  # world-to-cam translation
     return make_camera(R, T, fovx, fovy, width, height, device=device)
+
+
+def gen_virtual_cam(
+    camera: Camera,
+    rng: np.random.Generator,
+    trans_noise: float = 1.5,
+    deg_noise: float = 30.0,
+) -> Camera:
+    """Noise-perturbed virtual view (utils/camera_utils.py:126
+    gen_virtul_cam): three xyz Euler angles, then three translations, drawn
+    from `rng` in that order."""
+    from scipy.spatial.transform import Rotation
+
+    wv = camera.world_view.cpu().numpy().T  # W2V (column convention)
+    Rw2c = wv[:3, :3]
+    t = wv[:3, 3]
+    ang = np.deg2rad(rng.uniform(-deg_noise, deg_noise, 3))
+    Rn = Rotation.from_euler("xyz", ang).as_matrix()
+    tn = rng.uniform(-trans_noise, trans_noise, 3) * 0.1
+    R_new = Rn @ Rw2c
+    t_new = t + tn
+    # make_camera takes the cam-to-world rotation.
+    return make_camera(R_new.T, t_new, camera.fovx, camera.fovy, camera.width, camera.height,
+                       device=camera.device)

@@ -151,13 +151,17 @@ def render_surfel(
     pc: GaussianModel,
     camera: Camera,
     bg_color: torch.Tensor,
-    envmap: EnvLightMips,
+    envmap: EnvLightMips | None,
     opts: RenderOptions = RenderOptions(),
     mean2d_offset: torch.Tensor | None = None,
+    wo_render_img: bool = False,
 ) -> dict:
     """Deferred-shading render (gaussian_renderer/__init__.py:225-520),
     without traced visibility or indirect light (the surfel2 slice).
-    mean2d_offset: see ops/rasterize/api.rasterize (densification stats)."""
+    mean2d_offset: see ops/rasterize/api.rasterize (densification stats).
+    wo_render_img: the geometry and material pass alone (envmap may be
+    None): the regularization maps, the material maps, rend_distance and
+    diffuse_map, without shading; what the warp losses read."""
     colors = pc.get_colors(camera.camera_center)
     refl = pc.get_refl
     rough = pc.get_rough
@@ -192,6 +196,10 @@ def render_surfel(
         "overflow": out["overflow"],
         **regs,
     }
+    if wo_render_img:
+        # diffuse_map is shading-free ((1-m) * SH base color, render_surfel:446).
+        results["diffuse_map"] = (1 - refl_map) * base_color
+        return results
 
     # Deferred shading with the world-space normal map divided by alpha
     # (render_surfel:424-427).

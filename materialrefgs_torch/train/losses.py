@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from materialrefgs_torch.config import OptimizationParams
-from materialrefgs_torch.utils.transforms import relu0
+from materialrefgs_torch.utils.transforms import abs_, clip, relu0
 
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -95,7 +95,9 @@ def get_img_grad_weight(img: torch.Tensor) -> torch.Tensor:
 
 
 def smooth_loss_simple(data: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.sum(torch.abs(spatial_gradient(data)), dim=-1))
+    """Mean L1 of the Sobel gradients, with jnp.abs's gradient at 0 (the
+    ref-score loss smooths a masked map, flat where the mask is 0)."""
+    return torch.mean(torch.sum(abs_(spatial_gradient(data)), dim=-1))
 
 
 def _lap_kernel(size: int = 5, sigma: float = 2.0) -> np.ndarray:
@@ -133,6 +135,22 @@ def lap_loss(x, y, max_levels: int = 5, k_size: int = 5, sigma: float = 2.0) -> 
     return total + torch.sum(torch.abs(cx - cy))
 
 
+def lncc(ref: torch.Tensor, nea: torch.Tensor):
+    """Patch NCC (loss_utils.py:230-263). ref/nea (B, ps*ps) grayscale
+    patches. Returns (ncc (B, 1), mask (B, 1))."""
+    tps = nea.shape[1]
+    r, n = ref, nea
+    ref_sum, nea_sum, ref2_sum, nea2_sum, rn_sum = torch.sum(torch.stack([r, n, r * r, n * n, r * n]), dim=-1)
+    ref_avg = ref_sum / tps
+    nea_avg = nea_sum / tps
+    cross = rn_sum - nea_avg * ref_sum
+    ref_var = ref2_sum - ref_avg * ref_sum
+    nea_var = nea2_sum - nea_avg * nea_sum
+    cc = cross * cross / (ref_var * nea_var + 1e-8)
+    ncc = clip(1.0 - cc, 0.0, 2.0)[:, None]
+    return ncc, ncc < 0.9
+
+
 def calculate_loss(
     gt_image: torch.Tensor,  # (H, W, 3)
     render_pkg: dict,
@@ -159,7 +177,7 @@ def calculate_loss(
         rn = render_pkg["rend_normal"]
         sn = render_pkg["surf_normal"]
         if image_weight is not None and not opt.wo_image_weight:
-            ln = torch.mean(image_weight * torch.sum(torch.abs(sn - rn), dim=-1))
+            ln = torch.mean(image_weight * torch.sum(abs_(sn - rn), dim=-1))
         else:
             ln = torch.mean(1.0 - torch.sum(rn * sn, dim=-1))
         tb["loss_normal_render_depth"] = ln

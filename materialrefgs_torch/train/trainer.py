@@ -1,6 +1,6 @@
 """Training loop for the refnerf curriculum's `initial`, `surfel` and
 `surfel2` stages (the JAX package's train/trainer.py, reference
-train_refnerf.py:1012-1533).
+train_refnerf.py:1012-1533), from iteration 1 to the end of the schedule.
 
 `make_train_step(stage, ...)` returns one optimization step of that stage
 (a `TrainStep`, whose render and update halves can be called apart):
@@ -10,7 +10,12 @@ env-GS trace (both tracer kernels) with mesh-traced visibility, the loss terms
 ladder, mask entropy when masks exist, the env-scope penalty when
 configured), one backward, the Adam update with the per-group learning rates,
 the densification statistics from the screen-offset gradient, and in
-`surfel2` the env-GS model's own Adam update and statistics. `Trainer` runs
+`surfel2` the env-GS model's own Adam update and statistics. Past the warp
+gate (multi_view_weight_from_iter) a step also renders its nearest view
+geometry-only and adds the multi-view warp losses (train/warp.py); with
+normal priors it adds the mono-normal loss, and with ref-score masks (given,
+or mined by `Trainer.mine_ref_scores`) the ref-score material supervision.
+`Trainer` runs
 the JAX Trainer's schedule of SH oneups, pair-capacity escalation on binning
 overflow, densify/prune with prune grace, the white-background kick, opacity
 resets, the normal-propagation resets with the opacity-LR toggle, and from the
@@ -20,9 +25,8 @@ the extinction re-seed.
 
 The port runs eagerly, so a step mutates the state in place where the JAX
 step returns a new one. What the later slices bring raises
-NotImplementedError naming the slice: the `volume` stage, the multi-view warp
-loss (at the first iteration whose warp gate opens), mono-normal priors,
-ref-score masks, the LPIPS loss and the `raytracing_residual` indirect type.
+NotImplementedError naming the slice: the `volume` stage, the LPIPS loss and
+the `raytracing_residual` indirect type.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from materialrefgs_torch.cameras import Camera
+from materialrefgs_torch.cameras import Camera, gen_virtual_cam
 from materialrefgs_torch.config import OptimizationParams, PipelineParams
 from materialrefgs_torch.evaluate import fit_tracer_budgets
 from materialrefgs_torch.models import gaussian_model as gm
@@ -42,22 +46,19 @@ from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
 from materialrefgs_torch.ops.tracer.api import TracerConfig
 from materialrefgs_torch.render.envgs import render_surfel2, tracer_demand_probe
 from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel
-from materialrefgs_torch.train import losses
+from materialrefgs_torch.train import losses, warp
 from materialrefgs_torch.train.optim import Adam
 from materialrefgs_torch.train.stages import select_stage
-from materialrefgs_torch.utils.transforms import expon_lr
+from materialrefgs_torch.utils.transforms import abs_, expon_lr
 
 STAGES = ("initial", "surfel", "surfel2")
 
 
 def _later_slice(what: str) -> NotImplementedError:
     where = {
-        "volume": "the multi-view/volume slice",
-        "warp": "the multi-view/volume slice",
+        "volume": "the volume slice",
         "raytracing_residual": "the mesh-shading slice",
-        "mono-normal": "the multi-view/volume slice",
-        "ref-score": "the multi-view/volume slice",
-        "LPIPS": "the multi-view/volume slice",
+        "LPIPS": "the LPIPS slice",
     }[what]
     return NotImplementedError(f"{what} training is not ported yet; it comes with {where} of the port")
 
@@ -131,6 +132,28 @@ def param_lrs(opt: OptimizationParams, spatial_lr_scale: float, step: int,
     }
 
 
+def _ladder(iteration: int, steps) -> float:
+    """Value of the last (threshold, value) step with threshold < iteration."""
+    v = steps[0][1]
+    for thr, val in steps:
+        if iteration > thr:
+            v = val
+    return v
+
+
+def normal_gamma_schedule(iteration: int, opt: OptimizationParams) -> float:
+    """Mono-normal prior weight ladder (train_refnerf.py:1138-1149; the
+    ladder is preset config, glossy's differs)."""
+    g = 0.0
+    if iteration > opt.init_until_iter:
+        g = _ladder(iteration, opt.normal_gamma_ladder)
+    if iteration > opt.normal_prop_until_iter or iteration > opt.densify_until_iter:
+        g = 0.0
+    if opt.indirect_from_iter < iteration < opt.indirect_from_iter + 10000:
+        g = 0.0
+    return g
+
+
 def normal_loss_weight_schedule(iteration: int, opt: OptimizationParams) -> float:
     """get_current_normal_loss_weight (train_refnerf.py:1183-1196): the
     reference's chain of `current < thr` tests makes thresholds inclusive."""
@@ -153,7 +176,14 @@ class TrainStep:
 
     extra: {"iteration", "lambda_normal_render_depth", "bg"}, in `surfel2`
     "env_geo_lr_scale" (0 past env_update_until_iter: freeze_geo), and, when
-    the scene has foreground masks, "image_mask" (H, W)."""
+    the scene has foreground masks, "image_mask" (H, W). With the warp
+    (with_warp, `surfel` and `surfel2`): "nearest_camera", "nearest_gt"
+    (H, W, 3), "warp_photo_weight" (0 for a virtual camera) and
+    "warp_uniforms" (H*W,), the random pixel scores; the render then holds
+    the nearest view's geometry-only render under "nearest_pkg". With normal
+    priors: "normal_prior" (H, W, 3) and "normal_gamma". With ref-score
+    masks: "ref_score_mask" (H, W). Each of these two terms is on exactly
+    when its key is in `extra`."""
 
     def __init__(
         self,
@@ -166,6 +196,7 @@ class TrainStep:
         env_min_roughness: float = 0.08,
         env_max_roughness: float = 0.5,
         tracer_cfg: TracerConfig = TracerConfig(),
+        with_warp: bool = False,
     ):
         if stage not in STAGES:
             raise _later_slice("volume")
@@ -177,6 +208,7 @@ class TrainStep:
         if stage == "surfel2" and pipe.indirect_type != "origin":
             raise _later_slice("raytracing_residual")
         self.stage = stage
+        self.with_warp = with_warp and stage in ("surfel", "surfel2")
         self.tracer_cfg = tracer_cfg
         self.opt = opt
         self.spatial_lr_scale = spatial_lr_scale
@@ -198,6 +230,16 @@ class TrainStep:
 
     def render(self, state: TrainState, camera: Camera, extra: dict, mesh=None) -> tuple[dict, torch.Tensor]:
         """(the render package, the screen-offset leaf it was drawn with)."""
+        pkg, offset = self._render_main(state, camera, extra, mesh)
+        if self.with_warp:
+            # The warp reads only geometry and material maps, none of which
+            # depends on shading, the env-GS trace or the mesh: the nearest
+            # view is rendered geometry-only (trainer.py:259-269).
+            pkg["nearest_pkg"] = render_surfel(state.model, extra["nearest_camera"], extra["bg"], None,
+                                               self.ropts, wo_render_img=True)
+        return pkg, offset
+
+    def _render_main(self, state: TrainState, camera: Camera, extra: dict, mesh) -> tuple[dict, torch.Tensor]:
         model = state.model
         offset = torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
         if self.stage == "initial":
@@ -226,11 +268,63 @@ class TrainStep:
             image_weight = torch.clamp(1.0 - losses.get_img_grad_weight(gt), 0, 1) ** 2
         loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight)
 
+        if self.with_warp:
+            # Multi-view warp losses (calc_warp_loss, train_refnerf.py:414).
+            near = pkg["nearest_pkg"]
+            near_gt = extra["nearest_gt"]
+            gt_gray = 0.299 * gt[..., 0] + 0.587 * gt[..., 1] + 0.114 * gt[..., 2]
+            ngray = 0.299 * near_gt[..., 0] + 0.587 * near_gt[..., 1] + 0.114 * near_gt[..., 2]
+            msk = extra.get("image_mask")
+            if msk is None:
+                msk = torch.ones(gt.shape[:2], device=gt.device)
+            wl = warp.calc_warp_loss(
+                camera, extra["nearest_camera"], pkg, near, gt_gray, ngray, msk, opt, it, extra["warp_uniforms"],
+                use_ncc=opt.use_warp_ncc_loss and opt.multi_view_ncc_weight > 0 and opt.use_multi_view_trim,
+            )
+            gate_w = float(it > opt.multi_view_weight_from_iter)
+            # A virtual camera has no ground truth: only the geometric term
+            # applies (train_refnerf.py:511).
+            photo_w = float(extra.get("warp_photo_weight", 1.0))
+            loss = loss + gate_w * (wl.geo_loss + photo_w * (
+                wl.ncc_loss + wl.base_color_loss + wl.metallic_warp_loss + wl.roughness_warp_loss))
+            tb["loss_warp_geo"] = wl.geo_loss
+            tb["loss_warp_ncc"] = wl.ncc_loss
+            tb["loss_warp_bc"] = wl.base_color_loss
+            tb["loss_warp_mtl"] = wl.metallic_warp_loss
+            tb["loss_warp_rgh"] = wl.roughness_warp_loss
+
+        if self.stage in ("surfel", "surfel2") and "ref_score_mask" in extra:
+            # Reflection-score material supervision (train_refreal.py:1237-1263):
+            # inside the mask metallic -> 0.9 and roughness -> 0.05, the
+            # inverse outside, plus albedo smoothness in the mask.
+            gate_rs = float(it > opt.ref_score_start_iter)
+            rs = extra["ref_score_mask"][..., None]  # (H, W, 1)
+            refl_m, rough_m = pkg["refl_strength_map"], pkg["roughness_map"]
+
+            def masked_mean(x, m):
+                return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+            lrs = masked_mean(abs_(refl_m - 0.9), rs)
+            lrs = lrs + masked_mean(abs_(rough_m - 0.05), rs)
+            lrs = lrs + masked_mean(abs_(refl_m - 0.05), 1.0 - rs)
+            lrs = lrs * opt.ref_score_loss_weight
+            lrs = lrs + 0.5 * opt.ref_score_loss_weight * masked_mean(abs_(0.9 - rough_m), 1.0 - rs)
+            lrs = lrs + losses.smooth_loss_simple(pkg["base_color_map"] * rs)
+            loss = loss + gate_rs * lrs
+            tb["loss_ref_score"] = lrs
+
+        if "normal_prior" in extra:
+            # Monocular normal prior (mono_normal_loss, train_refnerf.py:202).
+            l1s, coss, l1r, cosr = warp.mono_normal_loss(
+                camera, pkg["surf_normal"], pkg["rend_normal"], extra["normal_prior"], extra.get("image_mask"))
+            loss = loss + float(extra["normal_gamma"]) * opt.mono_normal_coef * (l1s + l1r + coss + cosr)
+            tb["loss_mono_normal"] = l1s + l1r
+
         # Iteration-dependent normal-consistency weight (ladder).
         gate = float(it > opt.normal_loss_start)
         rn, sn = pkg["rend_normal"], pkg["surf_normal"]
         if image_weight is not None:
-            ln = torch.mean(image_weight * torch.sum(torch.abs(sn - rn), dim=-1))
+            ln = torch.mean(image_weight * torch.sum(abs_(sn - rn), dim=-1))
         else:
             ln = torch.mean(1.0 - torch.sum(rn * sn, dim=-1))
         loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
@@ -275,6 +369,8 @@ class TrainStep:
         metrics = {k: v.detach() for k, v in tb.items()}
         metrics["loss"] = loss.detach()
         metrics["overflow"] = pkg["overflow"]
+        if self.with_warp:
+            metrics["nearest_overflow"] = pkg["nearest_pkg"]["overflow"]
         if self.stage == "surfel2":
             # The env-GS model's own Adam. Its learning rates read the step
             # after the increment (trainer.py:461), without the opacity-LR
@@ -310,11 +406,12 @@ def make_train_step(
     env_min_roughness: float = 0.08,
     env_max_roughness: float = 0.5,
     tracer_cfg: TracerConfig = TracerConfig(),
+    with_warp: bool = False,
 ) -> TrainStep:
     """The step of `initial`, `surfel` or `surfel2`: step(state, camera, gt,
     extra, mesh=None) -> metrics (see TrainStep)."""
     return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
-                     env_min_roughness, env_max_roughness, tracer_cfg)
+                     env_min_roughness, env_max_roughness, tracer_cfg, with_warp)
 
 
 class Trainer:
@@ -326,9 +423,9 @@ class Trainer:
     budgets, so up to 10 truncated steps are applied. The port's eager step
     synchronizes with the host anyway, so the Trainer reads every render's
     counts between the step's render and update halves and redoes a render
-    that dropped anything: at the escalated pair capacity (binning), at
-    budgets that fit (the tracer: evaluate.fit_tracer_budgets), or at a
-    doubled mesh_cull_cap. No truncated step is applied unless a budget is at
+    that dropped anything: at the escalated pair capacity (binning, of the
+    view or of its nearest view's warp render), at budgets that fit (the
+    tracer: evaluate.fit_tracer_budgets), or at a doubled mesh_cull_cap. No truncated step is applied unless a budget is at
     its ceiling, where the step is applied truncated with a warning, as in the
     JAX package. The rasterizer's ceiling is 4x the JAX package's 1<<23 pair
     slots (a compressed curriculum's resets ask for over 10M pairs at
@@ -362,8 +459,9 @@ class Trainer:
         seed: int = 3407,
         envmap_res: int = 128,
         masks: list[np.ndarray] | None = None,  # (H, W) fg masks
-        normal_priors: list[np.ndarray] | None = None,
-        ref_score_masks: list[np.ndarray] | None = None,
+        normal_priors: list[np.ndarray] | None = None,  # (H, W, 3) camera-space (Metric3D)
+        ref_score_masks: list[np.ndarray] | None = None,  # (H, W) 0/1 masks
+        nearest_ids: list[list[int]] | None = None,  # Scene.nearest_ids
         with_warp: bool = False,
         envmap_min_roughness: float = 0.08,
         envmap_max_roughness: float = 0.5,
@@ -371,13 +469,11 @@ class Trainer:
         mesh_dir: str | None = None,  # periodic TSDF mesh artifacts
         mesh_every: int = 2000,
         use_mesh_visibility: bool = True,  # mesh-traced specular occlusion
+        virtual_cam_trans_noise: float = 1.5,  # ModelParams.multi_view_max_dis
+        virtual_cam_deg_noise: float = 30.0,  # ModelParams.multi_view_max_angle
     ):
         if opt.use_perceptual_loss:
             raise _later_slice("LPIPS")
-        if normal_priors is not None:
-            raise _later_slice("mono-normal")
-        if ref_score_masks is not None:
-            raise _later_slice("ref-score")
         self.opt = opt
         self.pipe = pipe
         self.cameras = cameras
@@ -386,10 +482,20 @@ class Trainer:
         self.masks = (
             [torch.as_tensor(np.asarray(m, np.float32), device=dev) for m in masks] if masks else None
         )
-        # The port has no warp loss yet: a run that asks for it (as the JAX
-        # CLI does whenever multi_view_ncc_weight > 0) stops where the warp
-        # gate opens instead of training on without it.
-        self.with_warp = with_warp
+        self.normal_priors = (
+            [torch.as_tensor(np.asarray(n, np.float32), device=dev) for n in normal_priors]
+            if normal_priors else None
+        )
+        self.ref_score_masks = (
+            [torch.as_tensor(np.asarray(m, np.float32), device=dev) for m in ref_score_masks]
+            if ref_score_masks else None
+        )
+        self.nearest_ids = nearest_ids
+        self.with_warp = with_warp and nearest_ids is not None
+        self.virtual_cam_trans_noise = virtual_cam_trans_noise
+        self.virtual_cam_deg_noise = virtual_cam_deg_noise
+        # (seconds, mask coverage) of each mine_ref_scores call.
+        self.ref_score_log: list[tuple[float, float]] = []
         self.cameras_extent = cameras_extent
         self.spatial_lr_scale = cameras_extent
         self.bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
@@ -416,15 +522,17 @@ class Trainer:
         self.metrics_log: list[dict] = []
         self._order: list[int] = []
 
-    def _step_fn(self, stage: str) -> TrainStep:
-        if stage not in self._steps:
-            self._steps[stage] = make_train_step(
+    def _step_fn(self, stage: str, warp_on: bool = False) -> TrainStep:
+        key = (stage, warp_on)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
                 stage, self.opt, self.pipe, self.spatial_lr_scale, self.raster_cfg,
                 env_min_roughness=self.envmap_min_roughness,
                 env_max_roughness=self.envmap_max_roughness,
                 tracer_cfg=self.tracer_cfg,
+                with_warp=warp_on,
             )
-        return self._steps[stage]
+        return self._steps[key]
 
     def _pick_view(self) -> int:
         """Next camera id from the epoch permutation (viewpoint_stack pop)."""
@@ -444,9 +552,14 @@ class Trainer:
             # freeze_geo (env_gaussian_model3.py:200-213): past
             # env_update_until_iter the env model's xyz/scaling LRs drop to 0.
             "env_geo_lr_scale": 0.0 if iteration > opt.env_update_until_iter else 1.0,
+            "normal_gamma": normal_gamma_schedule(iteration, opt),
         }
         if self.masks is not None:
             extra["image_mask"] = self.masks[cam_id]
+        if self.normal_priors is not None:
+            extra["normal_prior"] = self.normal_priors[cam_id]
+        if self.ref_score_masks is not None:
+            extra["ref_score_mask"] = self.ref_score_masks[cam_id]
         return extra
 
     def _warp_gate(self, iteration: int, stage: str) -> bool:
@@ -457,16 +570,45 @@ class Trainer:
             and iteration > self.opt.multi_view_weight_from_iter
         )
 
+    def _select_warp(self, iteration: int, stage: str, cam_id: int):
+        """(warp_on, nearest_camera, nearest_gt, photo_weight, nearest_id):
+        a neighbour from nearest_ids, or a virtual camera (nearest_id -1,
+        photo weight 0) with probability virtul_cam_prob or when the view has
+        no neighbour (train_refnerf.py:454-457). Draws from the Trainer's rng
+        in the JAX Trainer's order (trainer.py:786-814)."""
+        opt = self.opt
+        camera, gt = self.cameras[cam_id], self.images[cam_id]
+        warp_on = self._warp_gate(iteration, stage) and (len(self.nearest_ids[cam_id]) > 0 or opt.use_virtul_cam)
+        if not warp_on:
+            return False, camera, gt, 1.0, -1
+        use_virtual = opt.use_virtul_cam and (
+            self.rng.random() < opt.virtul_cam_prob or len(self.nearest_ids[cam_id]) == 0)
+        if use_virtual:
+            near = gen_virtual_cam(camera, self.rng, trans_noise=self.virtual_cam_trans_noise,
+                                   deg_noise=self.virtual_cam_deg_noise)
+            return True, near, gt, 0.0, -1
+        nid = int(self.nearest_ids[cam_id][self.rng.integers(len(self.nearest_ids[cam_id]))])
+        return True, self.cameras[nid], self.images[nid], 1.0, nid
+
     def _run_step(self, iteration: int, stage: str) -> dict:
         cam_id = self._pick_view()
         extra = self._build_extra(iteration, cam_id)
         cam = self.cameras[cam_id]
+        warp_on, near_cam, near_gt, photo_w, near_id = self._select_warp(iteration, stage, cam_id)
+        if warp_on:
+            uniforms = torch.rand(cam.height * cam.width, generator=self.generator, device=cam.device)
+            extra.update(nearest_camera=near_cam, nearest_gt=near_gt, warp_photo_weight=photo_w,
+                         warp_uniforms=uniforms)
         mesh = self.mesh if stage == "surfel2" else None
-        rendered = self._step_fn(stage).render(self.state, cam, extra, mesh)
+        rendered = self._step_fn(stage, warp_on).render(self.state, cam, extra, mesh)
         dropped, tracer_dropped, renders = 0, 0, 0
         while True:
             pkg = rendered[0]
+            # The nearest view's render is a second rasterization: its
+            # overflow is redone with the view's.
             overflow = int(pkg["overflow"])
+            if warp_on:
+                overflow = max(overflow, int(pkg["nearest_pkg"]["overflow"]))
             tracer_overflow = int(pkg.get("tracer_overflow", 0))
             cull_dropped = int(pkg.get("mesh_cull_dropped", 0))
             raised = False
@@ -480,11 +622,14 @@ class Trainer:
                 break
             dropped, tracer_dropped, renders = dropped + overflow, tracer_dropped + tracer_overflow, renders + 1
             del rendered, pkg  # free the truncated render's graph before redoing it
-            rendered = self._step_fn(stage).render(self.state, cam, extra, mesh)
-        metrics = self._step_fn(stage).update(self.state, cam, self.images[cam_id], extra, rendered)
-        # Renders that dropped pairs and were redone, and the pairs they dropped.
+            rendered = self._step_fn(stage, warp_on).render(self.state, cam, extra, mesh)
+        metrics = self._step_fn(stage, warp_on).update(self.state, cam, self.images[cam_id], extra, rendered)
+        # Renders that dropped pairs and were redone, and the pairs they
+        # dropped (with the warp, the larger of the two views' overflows).
         metrics["renders_redone"] = renders
         metrics["overflow_redone"] = dropped
+        metrics["warp_on"] = int(warp_on)
+        metrics["warp_near"] = near_id
         if stage == "surfel2":
             metrics["tracer_overflow_redone"] = tracer_dropped
         return metrics
@@ -498,12 +643,6 @@ class Trainer:
                 raise _later_slice(stage)
             if iteration == opt.volume_render_until_iter + 1 and opt.volume_render_until_iter > opt.init_until_iter:
                 raise _later_slice("volume")  # the volume -> surfel material re-init
-            if self._warp_gate(iteration, stage):
-                raise NotImplementedError(
-                    f"iteration {iteration} opens the warp gate (multi_view_weight_from_iter "
-                    f"{opt.multi_view_weight_from_iter}): the multi-view warp loss is not ported "
-                    "yet; it comes with the multi-view/volume slice of the port"
-                )
             if stage == "surfel2":
                 self._surfel2_onset(iteration)
 
@@ -568,6 +707,49 @@ class Trainer:
         """A `surfel` render for the probe and the mesh (no gradient)."""
         ropts = RenderOptions(unbiased_depth=self.pipe.unbiased_depth, raster=self.raster_cfg)
         return render_surfel(self.state.model, self.cameras[cam_id], self.bg, mips, ropts)
+
+    @torch.no_grad()
+    def mine_ref_scores(self, threshold: float = 0.5):
+        """calc_ref_score (train_refnerf.py:790-1010; JAX trainer.py:1342-1373):
+        render depth/normal/distance for every train view, mine multi-view
+        colour-difference scores through occlusion-tested homography warps,
+        and install thresholded masks for the ref-score supervision. Each
+        score map is divided by its 98th percentile before the 0.5 threshold
+        (the analog of the reference's PNG alpha > 128). The maps come from
+        the geometry-only render, which draws them as the shaded one does;
+        a render that overflows is redone at an escalated pair capacity."""
+        from materialrefgs_torch.train import ref_score as rs
+
+        t0 = time.perf_counter()
+        ropts = RenderOptions(unbiased_depth=self.pipe.unbiased_depth, raster=self.raster_cfg)
+        depths, normals, dists = [], [], []
+        for i in range(len(self.cameras)):
+            while True:
+                pkg = render_surfel(self.state.model, self.cameras[i], self.bg, None, ropts, wo_render_img=True)
+                ovf = int(pkg["overflow"])
+                if not ovf or not self._escalate_pair_capacity(ovf, self.state.step):
+                    break
+                ropts = dataclasses.replace(ropts, raster=self.raster_cfg)
+            depths.append(pkg["surf_depth"])
+            normals.append(pkg["rend_normal"])
+            dists.append(pkg["rend_distance"])
+        # Viewing direction in world = world_view[:3,:3] @ e_z.
+        R_list = [c.world_view[:3, :3].cpu().numpy() for c in self.cameras]
+        neighbors = rs.neighbor_graph_wide(self.cameras, R_list)
+        scores = rs.compute_ref_scores(self.cameras, self.images, depths, normals, dists, neighbors,
+                                       pixel_noise_th=self.opt.multi_view_pixel_noise_th)
+        masks = []
+        for s in scores:
+            hi = np.percentile(s, 98)
+            masks.append((s / max(hi, 1e-6) > threshold).astype(np.float32))
+        dev = self.state.model.device
+        self.ref_score_masks = [torch.as_tensor(m, device=dev) for m in masks]
+        seconds = time.perf_counter() - t0
+        coverage = float(np.mean([m.mean() for m in masks]))
+        self.ref_score_log.append((seconds, coverage))
+        print(f"[ref-score] mined {len(masks)} views ({sum(map(len, neighbors))} neighbour warps) in "
+              f"{seconds:.2f} s; the masks cover {100 * coverage:.2f} % of the pixels")
+        return scores, masks
 
     def _presize_tracer_capacity(self, iteration: int):
         """Probe the indirect trace's pair demand over up to 4 views drawn

@@ -50,6 +50,19 @@ def relu0(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, x.new_zeros(()))
 
 
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """|x| with jnp.abs's gradient: +1 at x == 0, where torch.abs gives 0.
+    It matters where both sides of a difference are exactly equal: a
+    masked-out pixel, or the target that max/min picked from the pair."""
+    return torch.where(x >= 0, x, -x)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): min(max(x, lo), hi) with jnp.maximum/minimum's
+    gradient, half to each side at a bound (torch.clamp passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def expon_lr(
     step: int,
     lr_init: float,

@@ -131,7 +131,7 @@ def main(argv=None) -> dict:
     if eval_stage == "volume":
         raise NotImplementedError(
             "volume-stage checkpoints are not ported yet; render_volume comes "
-            "with the multi-view/volume slice of the port"
+            "with the volume slice of the port"
         )
     if eval_stage != "initial":
         eval_stage = "surfel"

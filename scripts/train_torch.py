@@ -4,20 +4,21 @@ traced indirect light, mesh visibility, exact-order tracing) on
 Blender-layout scenes. Runs on the CUDA card unless --device cpu is given.
 
 Usage:
-  python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet \
-      --iterations 25000
+  python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet
   python scripts/train_torch.py -s <scene> -m <out> --schedule_scale 0.01 \
       --iterations 240 --device cpu
 
 Writes point_cloud/iteration_N/point_cloud.ply (+ the env maps, and past the
 surfel2 onset env_point_cloud.ply) and meshes/test_XXXXXX.ply that
 scripts/eval_torch.py loads, cfg_args.json, train_log.json, and checkpoints
-(chkpnt{N}.pt). When multi_view_ncc_weight > 0 (refnerf: 0.15) the run asks
-for the multi-view warp loss as scripts/train.py does; the port does not have
-it yet, so such a run stops with NotImplementedError at the iteration whose
-warp gate opens (multi_view_weight_from_iter, refnerf 25000 x
-schedule_scale). Also raising NotImplementedError: --dp, --metric3d_path,
---ref_score_path.
+(chkpnt{N}.pt). When multi_view_ncc_weight > 0 (refnerf: 0.15) the multi-view
+warp losses run past multi_view_weight_from_iter (refnerf 25000 x
+schedule_scale) against each view's neighbours (the scene's nearest-view
+graph) or virtual cameras (--use_virtul_cam). --metric3d_path reads
+camera-space normal priors (PNG, v/255*2-1) for the mono-normal loss;
+--ref_score_path reads reflection-score masks (PNG, last channel > 128) or,
+given `auto`, mines them at ref_score_start_iter. --dp raises
+NotImplementedError (the parallel slice of the port).
 """
 import argparse
 import dataclasses
@@ -49,6 +50,41 @@ def load_masks(mask_dir, train_infos, hw):
                 "comes with the COLMAP/refreal slice of the port"
             )
         masks.append((arr[..., -1] > 128).astype(np.float32))
+    return masks
+
+
+def load_normal_priors(metric3d_path, source_path, preset, train_infos):
+    """Metric3D mono-normal priors, (H, W, 3) camera-space normals v/255*2-1,
+    one per train view, or None when any is missing. The layout differs per
+    preset (train_glossy.py:62 `{scan}/normal`, train_refnerf.py:60
+    `{scan}_train/normal`); a flat dir of `{image_name}.png` also works."""
+    from materialrefgs_torch.utils import png
+
+    scan = os.path.basename(os.path.normpath(source_path))
+    suffix = "" if preset == "glossy" else "_train"
+    prior_dirs = [os.path.join(metric3d_path, scan + suffix, "normal"),
+                  os.path.join(metric3d_path, scan, "normal"), metric3d_path]
+    prior_rt = next((d for d in prior_dirs if os.path.isdir(d)), None)
+    priors = []
+    for ci in train_infos:
+        p = os.path.join(prior_rt, ci.image_name + ".png") if prior_rt else ""
+        if not (p and os.path.exists(p)):
+            return None
+        priors.append((png.read_png(p).astype(np.float32) / 255.0 * 2 - 1)[..., :3])
+    return priors
+
+
+def load_ref_score_masks(ref_score_path, train_infos):
+    """Precomputed reflection-score masks (train_refreal.py:177-185): last
+    channel > 128, one per train view; a missing file raises."""
+    from materialrefgs_torch.utils import png
+
+    masks = []
+    for ci in train_infos:
+        p = os.path.join(ref_score_path, ci.image_name + ".png")
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"--ref_score_path given but {p} is missing")
+        masks.append((png.read_png(p)[..., -1] > 128).astype(np.float32))
     return masks
 
 
@@ -90,8 +126,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--mask_dir", default=None,
                     help="dir of foreground-mask PNGs (last channel > 128); "
                          "default: the scene's train/ dir for refnerf")
-    ap.add_argument("--metric3d_path", default=None)
-    ap.add_argument("--ref_score_path", default=None)
+    ap.add_argument("--metric3d_path", default=None,
+                    help="dir of Metric3D normal PNGs ({scan}_train/normal, {scan}/normal or flat)")
+    ap.add_argument("--ref_score_path", default=None,
+                    help="dir of reflection-score PNGs (last channel > 128), or 'auto' to mine "
+                         "them in-process at ref_score_start_iter")
     ap.add_argument("--dp", type=int, default=0)
     ap.add_argument("--seed", type=int, default=3407)
     ap.add_argument("--log_every", type=int, default=100)
@@ -104,10 +143,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.dp:
         raise NotImplementedError("--dp (camera-batch data parallelism) comes with the parallel slice of the port")
-    if args.metric3d_path:
-        raise NotImplementedError("--metric3d_path (mono-normal priors) comes with the multi-view/volume slice of the port")
-    if args.ref_score_path:
-        raise NotImplementedError("--ref_score_path (ref-score masks) comes with the multi-view/volume slice of the port")
     if args.mesh_every is None:
         # The mesh cadence is a curriculum literal (train_refnerf.py:1459):
         # it compresses with the schedule.
@@ -161,6 +196,14 @@ def main(argv=None) -> dict:
     masks = load_masks(mask_dir, scene.info.train_cameras, (H, W)) if mask_dir else None
     if masks is not None:
         print(f"Loaded {len(masks)} foreground masks from {mask_dir}")
+    priors = None
+    if args.metric3d_path and os.path.isdir(args.metric3d_path):
+        priors = load_normal_priors(args.metric3d_path, args.source_path, args.preset, scene.info.train_cameras)
+        print(f"Loaded {len(priors)} normal priors from {args.metric3d_path}" if priors is not None
+              else f"[warn] --metric3d_path {args.metric3d_path}: a train view has no prior; mono-normal off")
+    ref_score_masks = None
+    if args.ref_score_path and args.ref_score_path != "auto":
+        ref_score_masks = load_ref_score_masks(args.ref_score_path, scene.info.train_cameras)
 
     pcd = scene.info.point_cloud
     if len(pcd.points) > args.capacity:
@@ -189,6 +232,7 @@ def main(argv=None) -> dict:
         cameras_extent=scene.cameras_extent, bg_color=bg,
         raster_cfg=RasterizeConfig(pair_capacity=args.pair_capacity),
         seed=args.seed, envmap_res=model_params.envmap_max_res, masks=masks,
+        normal_priors=priors, ref_score_masks=ref_score_masks, nearest_ids=scene.nearest_ids,
         with_warp=opt.multi_view_ncc_weight > 0,
         envmap_min_roughness=model_params.envmap_min_roughness,
         envmap_max_roughness=model_params.envmap_max_roughness,
@@ -197,6 +241,8 @@ def main(argv=None) -> dict:
         mesh_dir=os.path.join(args.model_path, "meshes"),
         mesh_every=args.mesh_every,
         use_mesh_visibility=not args.no_mesh_visibility,
+        virtual_cam_trans_noise=model_params.multi_view_max_dis,
+        virtual_cam_deg_noise=model_params.multi_view_max_angle,
     )
     if args.tracer_pair_capacity:
         # An explicit tracer budget is also its escalation's ceiling.
@@ -230,12 +276,25 @@ def main(argv=None) -> dict:
             print(f"Warm-started {int(env_gs.n_alive)} env gaussians from {env_ply}")
         done = args.start_iter
     marks = {m for m in marks if m > done}
+    if args.ref_score_path == "auto":
+        rs_iter = opt.ref_score_start_iter
+        if done < rs_iter <= opt.iterations:
+            marks.add(rs_iter)
+        elif done >= rs_iter:
+            # Resumed past the mining point: masks are not checkpointed, so
+            # mine now, or the resumed run would train without the ref-score
+            # supervision an uninterrupted run has.
+            print(f"[resume] mining reflection scores (past {rs_iter}) ...")
+            trainer.mine_ref_scores()
 
     results = {"trainer": trainer, "test": {}, "ply": None}
     t0 = time.time()
     for target in sorted(marks):
         trainer.train(target - done, start_iter=done + 1, log_every=args.log_every)
         done = target
+        if args.ref_score_path == "auto" and target == opt.ref_score_start_iter:
+            print(f"[{target}] mining reflection scores ...")
+            trainer.mine_ref_scores()
         with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
             json.dump(trainer.metrics_log, f)
         if target in test_marks and scene.test_cameras:

@@ -461,16 +461,21 @@ def test_trainer_escalates_overflow_and_refuses_later_slices():
     m = trainer.metrics_log[-1]
     assert m["stage"] == "surfel2" and m["env_n_alive"] > 0 and np.isfinite(m["loss"])
     assert trainer.state.env_gs is not None and trainer.state.env_adam.count == 1
-    for kw, match in ((dict(normal_priors=[0]), "mono-normal"), (dict(ref_score_masks=[0]), "ref-score")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttr.Trainer(model, cams, images, opt, tcfg.PipelineParams(), **kw)
-    # A run that asks for the warp loss trains up to its gate and stops at
-    # the first iteration past multi_view_weight_from_iter.
-    warp = ttr.Trainer(model, cams, images, dataclasses.replace(opt, multi_view_weight_from_iter=3),
-                       tcfg.PipelineParams(), with_warp=True, envmap_res=16)
-    with pytest.raises(NotImplementedError, match="warp"):
-        warp.train(4, log_every=1)
-    assert [m["iteration"] for m in warp.metrics_log] == [1, 2, 3]
+    # A run that asks for the warp loss trains past its gate (the one view
+    # has no neighbour: a virtual camera stands in), with normal priors and
+    # ref-score masks.
+    H, W = images[0].shape[:2]
+    warp = ttr.Trainer(model, cams, images,
+                       dataclasses.replace(opt, multi_view_weight_from_iter=3, use_virtul_cam=True,
+                                           ref_score_start_iter=3),
+                       tcfg.PipelineParams(), with_warp=True, envmap_res=16, nearest_ids=[[]],
+                       normal_priors=[np.tile(np.float32([0.0, 0.0, -1.0]), (H, W, 1))],
+                       ref_score_masks=[np.float32(rng.uniform(size=(H, W)) > 0.5)])
+    warp.train(4, log_every=1)
+    log = warp.metrics_log
+    assert [m["iteration"] for m in log] == [1, 2, 3, 4] and [m["warp_on"] for m in log] == [0, 0, 0, 1]
+    assert log[-1]["warp_near"] == -1 and log[-1]["stage"] == "surfel"  # the virtual camera
+    assert all(np.isfinite(log[-1][k]) for k in ("loss", "loss_warp_bc", "loss_mono_normal", "loss_ref_score"))
     with pytest.raises(NotImplementedError, match="LPIPS"):
         ttr.Trainer(model, cams, images, dataclasses.replace(opt, use_perceptual_loss=True),
                     tcfg.PipelineParams())
@@ -479,14 +484,15 @@ def test_trainer_escalates_overflow_and_refuses_later_slices():
         ttr.Trainer(model, cams, images, vol, tcfg.PipelineParams(), envmap_res=16).train(1)
 
 
-def _write_blender_scene(root, n_views=2, size=32):
-    """Cameras on a ring looking at the origin, RGBA ground truth whose
-    alpha is a centered disc (the train/ masks)."""
+def _write_blender_scene(root, n_views=2, size=32, step=0.6):
+    """Cameras on a ring looking at the origin, `step` radians apart (0.6:
+    no view has a neighbour in the nearest-view graph), RGBA ground truth
+    whose alpha is a centered disc (the train/ masks)."""
     os.makedirs(os.path.join(root, "train"))
     rng = np.random.default_rng(7)
     frames = []
     for i in range(n_views):
-        ang = 0.6 * i
+        ang = step * i
         eye = np.array([3.5 * np.sin(ang), 0.4, -3.5 * np.cos(ang)])
         fwd = -eye / np.linalg.norm(eye)
         right = np.cross(fwd, [0.0, 1.0, 0.0])
@@ -545,6 +551,9 @@ def test_train_cli_cpu_writes_a_ply_that_eval_loads(tmp_path):
                                    "--iterations", "9"])
     assert [m["iteration"] for m in warm["trainer"].metrics_log] == [9]
     assert warm["trainer"].state.step == 9  # the LR clock starts at --start_iter
-    for flag in (["--dp", "2"], ["--metric3d_path", scene], ["--ref_score_path", scene]):
-        with pytest.raises(NotImplementedError):
-            train.main(argv + flag)
+    # --dp stays refused; --ref_score_path reads one mask per train view
+    # (the scene's root has none).
+    with pytest.raises(NotImplementedError):
+        train.main(argv + ["--dp", "2"])
+    with pytest.raises(FileNotFoundError):
+        train.main(argv + ["--ref_score_path", scene])

@@ -401,9 +401,11 @@ def test_trainer_surfel2_with_main_densify_prune_and_reset():
 def test_train_cli_across_the_surfel2_onset(tmp_path, monkeypatch):
     """scripts/train_torch.py --device cpu across surfel -> surfel2: it writes
     the env PLY and the mesh, scripts/eval_torch.py serves them, a checkpoint
-    resumes past the onset, and --start_ply with an env cloud warm-starts it."""
+    resumes past the onset, --start_ply with an env cloud warm-starts it, and
+    the refnerf schedule's warp gate opens on the way (the two views are
+    neighbours)."""
     scene, run = str(tmp_path / "scene"), str(tmp_path / "run")
-    _write_blender_scene(scene)
+    _write_blender_scene(scene, step=0.15)
     train = _load_script("train_torch")
     # A 32^3 TSDF and a 2048-triangle traced mesh keep the five extractions
     # and the plain mesh tracer short at 32x32.
@@ -439,8 +441,11 @@ def test_train_cli_across_the_surfel2_onset(tmp_path, monkeypatch):
     assert [m["iteration"] for m in warm["trainer"].metrics_log] == [13]
     assert st.env_gs is not None and st.env_adam.count == 1 and warm["trainer"].metrics_log[-1]["env_n_alive"] > 0
     # Without the override the refnerf schedule's warp gate (25000 x 0.0005
-    # = 12) stops the run at 13: the port has no warp loss yet.
+    # = 12) opens at 13: the step renders its neighbour and adds the
+    # base-colour warp.
     i = argv.index("--multi_view_weight_from_iter")
     plain = argv[:i] + argv[i + 2 : -4]
-    with pytest.raises(NotImplementedError, match="warp"):
-        train.main(plain + ["--start_ply", ply_dir, "--start_iter", "12", "--iterations", "13"])
+    past = train.main(plain + ["--start_ply", ply_dir, "--start_iter", "12", "--iterations", "13"])
+    m = past["trainer"].metrics_log[-1]
+    assert m["iteration"] == 13 and m["stage"] == "surfel2" and m["warp_on"] == 1 and m["warp_near"] in (0, 1)
+    assert m["loss_warp_bc"] > 0 and np.isfinite(m["loss"]) and m["nearest_overflow"] == 0
