@@ -40,10 +40,7 @@ Phases (any failure exits non-zero before the result lines are printed):
      outcomes on the same inputs), and the Trainer's step (host clock,
      torch.profiler device-busy share and top kernels): `initial` on the
      learning check's state, `surfel` on the run's checkpoint at 30 and on
-     its state after 60; then both rasterizer kernels at one more step of
-     that state's captured inputs (input (ii), over 10M pairs after the
-     compressed resets) against their plain versions (the forward bit for
-     bit), with their times, plain times and bounds;
+     its state after 60 (over 10M pairs after the compressed resets);
  10. serve a full-width env-GS (`surfel2`) refnerf checkpoint through
      scripts/eval_torch.py's path: phase 4's model with its splats turned to
      lie in the shell (normals radial), saved under iteration_30000, plus a
@@ -59,25 +56,22 @@ Phases (any failure exits non-zero before the result lines are printed):
      redoes a view that overflows them at budgets that fit; counts zeroed
      just before each run, read right after;
  11. for view 0 of each set, the tracer kernel against its plain version at
-     the inputs the eval's path gives it (each launch kind, every bundle,
-     bit for bit), its walks and ranges, its time (CUDA events), its plain
-     version's (timed in the comparison run) and its bound; the tracer's
-     backward kernel at ring view 0's env-trace inputs against its plain
-     version on every bundle (time, bound, plain time, peak memory); one
-     render_surfel2 view per visibility mode under torch.profiler with its
-     peak device memory, and the mesh tracer's device time;
+     the close-ups' inputs from the eval's path (each launch kind, every
+     bundle, bit for bit), its walks and ranges, its time (CUDA events), its
+     plain version's (timed in the comparison run) and its bound; one
+     render_surfel2 view per visibility
+     mode under torch.profiler with its peak device memory, and the mesh
+     tracer's device time;
  12. train the refnerf `surfel2` stage at full width through
      scripts/train_torch.py: --start_ply from phase 7's iteration_60 at
      --start_iter 200 (indirect_from_iter at --schedule_scale 0.01),
      --iterations 240: 40 steps with env-GS traced indirect light, mesh
      visibility and exact order, over the onset (env init, mesh extraction,
-     the budget probe), the mesh re-extraction at 220, env densify every 5
+     the budget probe; --mesh_every 1000, no re-extraction), env densify every 5
      iterations and the env reset at 240, test marks at 220 and 240; counts
      zeroed just before, read right after; the saved directory (PLY, env PLY,
-     mesh) served through scripts/eval_torch.py; then 10 steps (201-210)
-     from phase 10's 150k-splat main cloud, whose splats pass the 20-pixel
-     prune, with the main model's densify, prune and opacity reset live
-     (n_alive and s/step printed);
+     mesh) served through scripts/eval_torch.py (the main model's densify,
+     prune and reset inside surfel2 run live in phase 16);
  13. learning check: 30 `surfel2` steps from the same onset (and phase
      12's onset mesh) with densification, resets and mesh re-extraction off
      must raise the train PSNR by >= 0.3 dB;
@@ -86,16 +80,17 @@ Phases (any failure exits non-zero before the result lines are printed):
      forward bit for bit), the step's walks and ranges, both kernels' times,
      their plain versions' and their bounds (counted from the plain
      versions' work); both rasterizer kernels at the same step's inputs
-     (input (iii), S=10) as at (ii); and the Trainer's `surfel2` step (host
+     (input (iii), S=10), the forward bit for bit; and the Trainer's
+     `surfel2` step (host
      clock, torch.profiler device-busy share and top kernels, the mesh
      tracer's device time, peak memory);
  15. train refnerf across the warp gate through scripts/train_torch.py on a
      scene of 24 train views 15 deg apart (every view has neighbours; GT,
      masks and camera-space normal priors rendered from phase 4's model):
-     (a) from phase 12's iteration_240 (main + env PLY) 30 `surfel2` steps
-     (241-270) across refnerf's gate at 250 (base-colour warp, mesh
+     (a) from phase 12's iteration_240 (main + env PLY) 20 `surfel2` steps
+     (241-260) across refnerf's gate at 250 (base-colour warp, mesh
      extracted at the onset, no re-extraction), counts zeroed just before
-     and read just after (the record's launches), s/step on each side of
+     and read just after, s/step on each side of
      the gate; then the warp's cost as a pair: on (a)'s final state, two
      views each step with the warp off and on, alternating, every step from
      the same snapshot of the state (host clock, peak memory), and one
@@ -104,11 +99,30 @@ Phases (any failure exits non-zero before the result lines are printed):
      phase 7's iteration_50 PLY with every warp term, virtual cameras, the
      normal priors (--metric3d_path) and masks mined at 55
      (--ref_score_path auto): each term non-zero at least once, the mining
-     time and the masks' coverage.
+     time and the masks' coverage;
+ 16. refreal, the Shiny Blender Real preset, end to end: (a) a COLMAP scene
+     written here (no Pillow): 24 PNG photos at 4946x3286 rendered from phase
+     4's model over black on a ring at two elevations 15 deg apart, PINHOLE
+     with fx 1 % shorter than fy and the principal point off centre, 100,000
+     sparse points near the surface coloured from a render; (b)
+     scripts/train_torch.py --preset refreal -r 4 (1236x821: partial tiles,
+     an odd height) --schedule_scale 0.01 --iterations 170 --ref_score_path
+     auto --mesh_every 1000, with LPIPS at RANDOM weights in the documented
+     .npz ($MATERIALREFGS_LPIPS_WEIGHTS): initial 1-30, surfel with the warp
+     from 71, masks mined at 100, surfel2 from 126 (unbounded TSDF), LPIPS
+     from 161; counts zeroed just before, read just after (the record's
+     launches); the loader's time per image, s/step per stretch, the LPIPS
+     network's time, mining and TSDF times, peak memory and one profiled
+     surfel2 step with LPIPS (busy share, top kernels); every loss term
+     finite, the distortion, warp, ref-score and perceptual terms each
+     non-zero once, no step applied truncated, no lpips_disabled, the train
+     PSNR up; (c) all four kernels at a surfel2 step's inputs at 1236x821
+     against their plain versions (the forward kernels bit for bit), with
+     times and bounds; (d) scripts/eval_torch.py serves the 3 test views.
 
-The second-to-last line is the kernels' JSON record (launches from phase 15's
-run (a)); the last line is {"ok": true, "device": {...}}. The script imports
-nothing of JAX.
+The second-to-last line is the kernels' JSON record (launches from phase 16's
+run (b), times and bounds from (c)); the last line is {"ok": true, "device":
+{...}}. The script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -174,23 +188,36 @@ TRAIN_TEST_MARKS = (30, 60)
 S2_FROM = 50
 S2_START, S2_END = 200, 240
 S2_TEST_MARKS = (220, 240)
-# The densify run inside surfel2 (phase 12): 201-210 holds the densify and
-# prune at 205 and 210 and the opacity reset at 210 (intervals 5 and 30 at
-# --schedule_scale 0.01). It stops at the reset: the steps after it ask the
-# env trace for 50-60M pairs more than its 67M cap.
-S2_DENSIFY_END = 210
 # The warp phase (15): WARP_VIEWS train views 15 deg apart, so every view has
 # neighbours; run (a) continues phase 12's checkpoint from 240 to WARP_A_END
 # across refnerf's warp gate (25000 x 0.01).
 WARP_VIEWS = 24
 WARP_GATE = 250
-WARP_A_END = 270
+WARP_A_END = 260
 WARP_TERMS = ("loss_warp_geo", "loss_warp_ncc", "loss_warp_bc", "loss_warp_mtl", "loss_warp_rgh")
 W = H = 800
 N_VIEWS = 8
 P_SPLATS = 150_000
 PAIR_CAPACITY = (1 << 20) + (1 << 18)
 ITERATION = 7000  # a refnerf checkpoint of the `surfel` stage (deferred shading)
+# The refreal phase (16): a COLMAP scene of REAL_VIEWS photos at the real
+# captures' size, trained through -r 4 and served.
+REAL_W, REAL_H = 4946, 3286  # a mip-NeRF 360 outdoor frame; -r 4 -> 1236x821
+REAL_VIEWS = 24
+REAL_ITERS = 170  # refreal x 0.01: initial 1-30, warp from 71, mining at 100, surfel2 from 126, LPIPS from 161
+REAL_POINTS = 100_000
+# The main model's capacity: the reader's 100,000 points are subsampled to
+# half of it. With the default 1<<19 the compressed run reached 222k splats
+# at the surfel2 onset, whose env copy asked the env trace for 73-180M pairs
+# a step (234M probed), past the tracer's 67M-pair ceiling: steps were
+# applied truncated and the env cloud went extinct (PERF.md §6).
+REAL_CAPACITY = 1 << 16
+REAL_PHOTO_PAIRS = 1 << 25  # the photos' render: ~25x the pairs of an 800x800 view
+# Learning: the served PSNR over every train view at the end above that of
+# the PLY saved at REAL_DEFERRED_FROM (the first deferred-shading step) by
+# this much.
+REAL_DEFERRED_FROM = 31
+REAL_PSNR_GAIN = 1.0
 # Tolerances per output group (the JAX package's tests/test_rasterize_pallas.py).
 TOLS = {
     "color": 2e-4, "feature": 2e-4, "normal": 2e-4, "M1": 2e-4, "M2": 2e-4,
@@ -329,9 +356,6 @@ def ring_views(np, n, radius=3.2):
 # final_T and n_contrib 4. Exact order adds its sort: k log2 k comparisons
 # for the k hits of a ray in a chunk.
 TRACE_HIT_FLOPS = 45
-# The tracer launch the kernels' record reports: the env trace of a view that
-# sees the whole object.
-TRACE_ROW = "ring view 0, env, no mesh (n_sh=16)"
 
 
 # FP32 operations the tracer's backward needs (csrc/trace_bwd.cu) for this
@@ -443,6 +467,78 @@ def compare_trace(np, out, ref, what):
         worst = max(worst, float(err.max()))
     print(f"    {what}: max/p99 |err| per channel: " + ", ".join(cells))
     return worst
+
+
+def tracer_at(np, torch, cap, what):
+    """Both tracer kernels at one training step's captured backward inputs
+    (payload cut to the columns its segments use, rays, segments, walk
+    lengths, forward output, cotangent): each against its plain version on
+    every bundle (the forward bit for bit, and equal to the step's own
+    forward output), its time (CUDA events), its plain version's (timed in
+    its comparison run) and its bound from the plain version's work counts.
+    Returns {"fwd": ..., "bwd": ...} with ms, plain_ms, bound, by and err."""
+    from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
+
+    sargs, skw = cap
+    n_sh_s = skw["n_sh"]
+    # The kernel against its plain version on every bundle of the step (the
+    # silhouette bundles' walks of hundreds of chunks included), the plain
+    # version timed in its comparison run, the bound from its work counts.
+    dp, dr = trace_bwd.trace_bundles_bwd(*sargs, **skw)
+    torch.cuda.synchronize()
+    swork, sres = {}, {}
+    s_plain_ms = cuda_ms(torch, lambda: sres.update(ref=trace_bwd.trace_bundles_bwd_plain(*sargs, **skw, work=swork)), 1)
+    rp, rr = sres.pop("ref")
+    s_bwd_err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh_s,
+                                  f"{what} backward, every bundle (n_sh={n_sh_s}, "
+                                  f"{'exact' if skw['exact_order'] else 'list'} order)")
+    del dp, dr, rp, rr
+    for _ in range(3):
+        trace_bwd.trace_bundles_bwd(*sargs, **skw)
+    s_ms = cuda_ms(torch, lambda: trace_bwd.trace_bundles_bwd(*sargs, **skw), 10)
+    NBs = sargs[1].shape[0]
+    s_bytes = trace_bwd_bytes(n_sh_s, swork["hit_tests"] // 256, NBs)
+    s_flops = trace_bwd_flops(swork, n_sh_s, skw["exact_order"])
+    tb_, to_ = s_bytes / PEAK_BYTES_PER_S * 1e3, s_flops / PEAK_FP32_FLOPS * 1e3
+    s_bound, s_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
+    print(f"  tracer bwd at the step's inputs ({NBs} bundles, {int((sargs[3] > 0).sum())} with pairs, "
+          f"{int(sargs[3].sum())} pairs, {int(sargs[4].max()) // 128} chunks in the longest walk): kernel ms "
+          f"{s_ms:.4f}; plain version ms {s_plain_ms:.1f} (timed in its comparison run)")
+    print(f"  tracer bwd bound ms: {s_bound:.4f} (by {s_by}: {s_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
+          f"{s_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {swork['hit_tests']} hit tests, {swork['hits']} hits, "
+          f"{swork['contribs']} composited, {swork['sort_compares']:.0f} sort compares); kernel at "
+          f"{100 * s_bound / s_ms:.1f} % of it")
+    print("  tracer bwd library call: none computes this function")
+
+    # The forward kernel at the same step's inputs: against its plain version
+    # on every bundle, its time, the plain version's (timed in its comparison
+    # run) and its bound from the plain version's work; the step's walks.
+    fargs, fkw = sargs[:4], {k: skw[k] for k in ("n_sh", "tmin", "exact_order")}
+    fo = trace_fwd.trace_bundles_fwd(*fargs, **fkw)
+    torch.cuda.synchronize()
+    check(torch.equal(fo, sargs[5]), "the forward kernel gave the step another output on the same inputs")
+    fwork, fres = {}, {}
+    f_plain_ms = cuda_ms(torch, lambda: fres.update(ref=trace_fwd.trace_bundles_fwd_plain(*fargs, **fkw, work=fwork)), 1)
+    f_err = compare_trace(np, fo.cpu().numpy(), fres.pop("ref").cpu().numpy(),
+                          f"{what} forward, every bundle (n_sh={n_sh_s})")
+    walk_histogram(torch, sargs[3], fo[:, 0, 10], sargs[0].shape[1], what)
+    del fo
+    for _ in range(3):
+        trace_fwd.trace_bundles_fwd(*fargs, **fkw)
+    f_ms = cuda_ms(torch, lambda: trace_fwd.trace_bundles_fwd(*fargs, **fkw), 10)
+    f_pairs = fwork["hit_tests"] // 256
+    f_bytes = 4 * ((13 + 3 * n_sh_s) * f_pairs + NBs * 256 * 8 + NBs * 256 * 16 + 2 * NBs + 1)
+    f_flops = trace_flops(fwork, n_sh_s, skw["exact_order"])
+    tb_, to_ = f_bytes / PEAK_BYTES_PER_S * 1e3, f_flops / PEAK_FP32_FLOPS * 1e3
+    f_bound, f_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
+    print(f"  tracer fwd at the step's inputs: kernel ms {f_ms:.4f}; plain version ms {f_plain_ms:.1f} (timed in "
+          f"its comparison run)")
+    print(f"  tracer fwd bound ms: {f_bound:.4f} (by {f_by}: {f_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
+          f"{f_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {fwork['hit_tests']} hit tests, {fwork['hits']} hits, "
+          f"{fwork['contribs']} composited, {fwork['sort_compares']:.0f} sort compares); kernel at "
+          f"{100 * f_bound / f_ms:.1f} % of it")
+    return {"bwd": dict(ms=s_ms, plain_ms=s_plain_ms, bound=s_bound, by=s_by, err=s_bwd_err),
+            "fwd": dict(ms=f_ms, plain_ms=f_plain_ms, bound=f_bound, by=f_by, err=f_err)}
 
 
 def icosphere(np, sub):
@@ -646,6 +742,338 @@ def raster_at(np, torch, what, cap):
     print(f"    {walked:.0f} (pixel, position) in contributor ranges; passing the hit test {work['pass3d']} (3D) + "
           f"{work['pass2d']} (2D); {cols} pair columns up to the tiles' last contributors")
     return nums
+
+
+def write_colmap_bin(np, sparse, W, H, params, c2ws, names, xyz, rgb):
+    """A COLMAP sparse model (cameras.bin, images.bin, points3D.bin) with
+    one PINHOLE camera: c2ws are Blender (OpenGL-axis) camera-to-world
+    matrices; points carry no tracks."""
+    import struct
+
+    from materialrefgs_torch.data.colmap_loader import rotmat2qvec
+
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, W, H) + struct.pack("<4d", *params))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(c2ws)))
+        for i, (c2w, name) in enumerate(zip(c2ws, names)):
+            # COLMAP axes: x right, y down, z forward.
+            R_c2w = c2w[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+            R = R_c2w.T
+            t = -R @ c2w[:3, 3]
+            f.write(struct.pack("<idddddddi", i + 1, *rotmat2qvec(R), *t, 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+                                       ("track", "<u8")]))
+    rec["id"] = np.arange(1, len(xyz) + 1)
+    rec["xyz"], rec["rgb"], rec["err"] = xyz, rgb, 0.5
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + rec.tobytes())
+
+
+def random_lpips_weights(np, path, seed=0):
+    """LPIPS weights in the documented .npz format (train/lpips.py), random:
+    He-normal VGG16 convolutions, zero biases, uniform heads. No pretrained
+    VGG16 ships with the repository; the network runs at full width all the
+    same."""
+    from materialrefgs_torch.train.lpips import _VGG_CHANNELS
+
+    rng = np.random.default_rng(seed)
+    out, cin = {}, 3
+    for i, c in enumerate(_VGG_CHANNELS):
+        out[f"conv{i}_w"] = (rng.normal(size=(3, 3, cin, c)) * math.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        out[f"conv{i}_b"] = np.zeros(c, np.float32)
+        cin = c
+    for j, c in enumerate((64, 128, 256, 512, 512)):
+        out[f"lin{j}"] = rng.uniform(size=c).astype(np.float32)
+    np.savez(path, **out)
+    return path
+
+
+def lpips_flops(H, W):
+    """Multiply-adds x 2 of one VGG16 pass to the fifth tap at H x W (13
+    3x3 convolutions, floor pooling)."""
+    from materialrefgs_torch.train.lpips import _POOL_AFTER, _VGG_CHANNELS
+
+    total, cin, h, w = 0, 3, H, W
+    for i, c in enumerate(_VGG_CHANNELS):
+        total += 2 * 9 * cin * c * h * w
+        cin = c
+        if i in _POOL_AFTER:
+            h, w = h // 2, w // 2
+    return total
+
+
+def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, eval_torch):
+    """Phase 16: refreal end to end. (a) a COLMAP scene of REAL_VIEWS PNG
+    photos at REAL_W x REAL_H rendered from phase 4's model over black
+    (PINHOLE, fx != fy, principal point off centre; a ring at two
+    elevations 15 deg apart), REAL_POINTS sparse points near its surface
+    coloured from a render; (b) scripts/train_torch.py --preset refreal -r 4
+    (1236x821) for REAL_ITERS iterations at x0.01 with LPIPS at random
+    weights, ref-score masks mined at 100, the unbounded TSDF at the onset;
+    (c) the four kernels at a surfel2 step's inputs against their plain
+    versions; (d) scripts/eval_torch.py serves the test views. Returns the
+    numbers for the kernels' record."""
+    from materialrefgs_torch import config as cfg
+    from materialrefgs_torch.data import readers
+    from materialrefgs_torch.evaluate import render_set
+    from materialrefgs_torch.models import gaussian_io
+    from materialrefgs_torch.models.env_light import EnvLightMips
+    from materialrefgs_torch.models.scene import Scene
+    from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
+    from materialrefgs_torch.ops.tracer import api as tracer_api
+    from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
+    from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
+    from materialrefgs_torch.train import lpips as lpips_mod
+    from materialrefgs_torch.utils import png
+
+    kernels = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd, trace_fwd.trace_bundles_fwd,
+               trace_bwd.trace_bundles_bwd)
+    # (a) the scene. fy sets a 0.8 rad vertical field of view; fx is 1 %
+    # shorter, the principal point a few pixels off centre.
+    scene_dir = os.path.join(work_dir, "refreal_scene")
+    fy = REAL_H / (2 * math.tan(0.4))
+    params = (fy / 1.01, fy, REAL_W / 2 + 3.7, REAL_H / 2 - 2.9)
+    names = [f"frame_{i:05d}.png" for i in range(REAL_VIEWS)]
+    c2ws = ring_views(np, REAL_VIEWS)
+    rng = np.random.default_rng(16)
+    t0 = time.perf_counter()
+    sparse = os.path.join(scene_dir, "sparse", "0")
+    write_colmap_bin(np, sparse, REAL_W, REAL_H, params, c2ws, names, np.zeros((0, 3)), np.zeros((0, 3)))
+    mp = dataclasses.replace(cfg.preset_refreal()[0], source_path=scene_dir)
+    full = Scene.load(mp, resolution_scale=1, device=dev)
+    cams = [c for _, c in sorted(zip([ci.image_name for ci in full.info.train_cameras + full.info.test_cameras],
+                                     full.train_cameras + full.test_cameras), key=lambda t: t[0])]
+    opts = RenderOptions(raster=api.RasterizeConfig(pair_capacity=REAL_PHOTO_PAIRS))
+    black = torch.zeros(3, device=dev)
+    t_render = t_png = 0.0
+    view0 = None
+    os.makedirs(os.path.join(scene_dir, "images"))
+    with torch.no_grad():
+        for i, cam in enumerate(cams):
+            t1 = time.perf_counter()
+            pkg = render_surfel(model, cam, black, mips, opts)
+            check(int(pkg["overflow"]) == 0, f"refreal photo {i} overflows the pair capacity")
+            img = (torch.clamp(pkg["render"], 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+            del pkg
+            t2 = time.perf_counter()
+            png.write_png(os.path.join(scene_dir, "images", names[i]), img, level=1)
+            t_render, t_png = t_render + t2 - t1, t_png + time.perf_counter() - t2
+            if i == 0:
+                view0 = img
+    # The sparse points: splat centres near the surface, coloured from view
+    # 0's photo where they project into it (the nearest edge pixel elsewhere).
+    sel = rng.choice(model.capacity, REAL_POINTS, replace=False)
+    xyz = model.xyz[sel].detach().cpu().numpy().astype(np.float64) + rng.normal(size=(REAL_POINTS, 3)) * 0.01
+    clip = np.concatenate([xyz, np.ones((REAL_POINTS, 1))], 1) @ cams[0].full_proj.cpu().numpy().astype(np.float64)
+    px = np.clip(((clip[:, 0] / clip[:, 3] + 1) * REAL_W - 1) / 2, 0, REAL_W - 1).astype(int)
+    py = np.clip(((clip[:, 1] / clip[:, 3] + 1) * REAL_H - 1) / 2, 0, REAL_H - 1).astype(int)
+    write_colmap_bin(np, sparse, REAL_W, REAL_H, params, c2ws, names, xyz, view0[py, px])
+    os.remove(os.path.join(sparse, "points3D.ply"))  # the reader's cache of the empty cloud above
+    write_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(scene_dir) for f in fs)
+    print(f"  COLMAP scene: {REAL_VIEWS} PNG photos at {REAL_W}x{REAL_H} (PINHOLE fx {params[0]:.1f}, fy "
+          f"{params[1]:.1f}, cx {params[2]:.1f}, cy {params[3]:.1f}), {REAL_POINTS} points; written in {write_s:.1f} s "
+          f"(renders {t_render:.1f} s, PNG encoding {t_png:.1f} s); {on_disk / 1e6:.1f} MB on disk")
+
+    # (b) train refreal through the CLI, the loader timed inside it.
+    out_dir = os.path.join(work_dir, "refreal_run")
+    wpath = random_lpips_weights(np, os.path.join(work_dir, "lpips_random.npz"))
+    os.environ[lpips_mod.DEFAULT_WEIGHTS_ENV] = wpath
+    print(f"  LPIPS weights: {wpath}, RANDOM (He-normal VGG16, uniform heads): no pretrained VGG16 ships with "
+          "the repository")
+    loader = {"decode": [], "resize": []}
+    real_read, real_resize = readers.png.read_png, readers.resample.resize
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            loader[key].append(time.perf_counter() - t1)
+            return out
+        return wrapper
+
+    argv = ["-s", scene_dir, "-m", out_dir, "--preset", "refreal", "-r", "4", "--schedule_scale", "0.01",
+            "--iterations", str(REAL_ITERS), "--ref_score_path", "auto", "--mesh_every", "1000",
+            "--capacity", str(REAL_CAPACITY), "--save_iterations", str(REAL_DEFERRED_FROM), str(REAL_ITERS),
+            "--log_every", "1"]
+    print("  python scripts/train_torch.py " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0  # counts of this path's run only
+    readers.png.read_png, readers.resample.resize = timed("decode", real_read), timed("resize", real_resize)
+    t0 = time.perf_counter()
+    try:
+        res = train_torch.main(argv)
+    finally:
+        readers.png.read_png, readers.resample.resize = real_read, real_resize
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tr = res["trainer"]
+    log = tr.metrics_log
+    H, W = tr.images[0].shape[:2]
+    print(f"  {len(log)} steps in {run_s:.1f} s at {W}x{H}; peak device memory {peak:.2f} GiB; kernel launches "
+          f"{launches}")
+    print(f"  loader per image ({len(loader['decode'])} decoded, {len(loader['resize'])} resized): PNG decode "
+          f"{1e3 * float(np.median(loader['decode'])):.0f} ms, LANCZOS /4 to {W}x{H} "
+          f"{1e3 * float(np.median(loader['resize'])):.0f} ms (medians)")
+    check((W, H) == (REAL_W // 4, REAL_H // 4), f"trained at {W}x{H}")
+    check([m["iteration"] for m in log] == list(range(1, REAL_ITERS + 1)), "refreal skipped iterations")
+    opt = tr.opt
+    stages = [m["stage"] for m in log]
+    check(stages == ["initial"] * opt.init_until_iter + ["surfel"] * (opt.indirect_from_iter - opt.init_until_iter)
+          + ["surfel2"] * (REAL_ITERS - opt.indirect_from_iter), "refreal stages out of order")
+    keys = ("loss_dist", "loss_warp_geo", "loss_warp_ncc", "loss_warp_bc", "loss_ref_score", "perceptual_loss")
+    for m in log:
+        if m["iteration"] in (1, 30, 31, 70, 71, 100, 101, 125, 126, 160, 161, 170) or m["renders_redone"] > 0:
+            print(f"    it {m['iteration']:3d} {m['stage']:8s} loss {m['loss']:.5f} psnr {m['psnr']:.3f} n_alive "
+                  f"{m['n_alive']} env_n_alive {m.get('env_n_alive', 0)} redone {m['renders_redone']:.0f} "
+                  + " ".join(f"{k[5:] if k.startswith('loss_') else k} {m.get(k, float('nan')):.3e}" for k in keys))
+    check(all(math.isfinite(v) for m in log for v in m.values() if isinstance(v, float)), "a non-finite loss term")
+    for k in keys:
+        check(any(m.get(k, 0.0) != 0.0 for m in log), f"{k} was zero on every step")
+    check(all(m["overflow"] == 0 and m.get("nearest_overflow", 0) == 0 and m.get("tracer_overflow", 0) == 0
+              and m.get("mesh_cull_dropped", 0) == 0 for m in log), "a refreal step was applied truncated")
+    check(all(n > 0 for n in launches.values()), "a kernel of the refreal path never launched")
+    for name, prm in list(tr.state.params().items()) + [("env." + k, v) for k, v in tr.state.env_params().items()]:
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after the refreal run")
+    with open(os.path.join(out_dir, "cfg_args.json")) as f:
+        dumped = json.load(f)
+    check("lpips_disabled" not in dumped["extra"] and dumped["model"]["resolution"] == 4,
+          "cfg_args.json records lpips_disabled or another resolution")
+    # Learning. A step's PSNR is of one view, and the compressed curriculum
+    # resets opacities every 30 iterations; iteration 1 renders the initial
+    # stage's SH colours of points coloured from the photos, over a black
+    # background that most pixels show. So the check serves every train
+    # view (render_set, no maps written) from the PLY of the first
+    # deferred-shading step (random materials) and from the final state.
+    ps = {m["iteration"]: m["psnr"] for m in log}
+    served = {}
+    with torch.no_grad():
+        for when in (REAL_DEFERRED_FROM, REAL_ITERS):
+            if when == REAL_ITERS:
+                m_, e1, env_m, mesh_ = tr.state.model, tr.state.env1, tr.state.env_gs, tr.mesh
+            else:
+                m_, e1, _ = gaussian_io.load_ply(os.path.join(out_dir, "point_cloud", f"iteration_{when}",
+                                                              "point_cloud.ply"), device=dev)
+                env_m = mesh_ = None
+            mips_ = EnvLightMips.build(e1, min_roughness=mp.envmap_min_roughness, max_roughness=mp.envmap_max_roughness)
+            served[when] = render_set("", "train", tr.cameras, tr.images, m_, mips_, env_m,
+                                      RenderOptions(raster=tr.raster_cfg), tracer_cfg=tr.tracer_cfg,
+                                      dump_maps=False, bg_color=(0.0, 0.0, 0.0), mesh=mesh_)["psnr"]
+    print(f"  train PSNR: per step at 1 {ps[1]:.3f} dB (initial stage), at {REAL_ITERS} {ps[REAL_ITERS]:.3f} dB; over "
+          f"all {len(tr.cameras)} train views served: at {REAL_DEFERRED_FROM} (render_surfel) "
+          f"{served[REAL_DEFERRED_FROM]:.3f} dB, at {REAL_ITERS} (render_surfel2, mesh) {served[REAL_ITERS]:.3f} dB "
+          f"(+{served[REAL_ITERS] - served[REAL_DEFERRED_FROM]:.3f})")
+    check(served[REAL_ITERS] > served[REAL_DEFERRED_FROM] + REAL_PSNR_GAIN,
+          f"training from {REAL_DEFERRED_FROM} did not raise the served train PSNR by {REAL_PSNR_GAIN} dB")
+    walls = {m["iteration"]: m["wall"] for m in log}
+    redo = {m["iteration"] for m in log if m["renders_redone"] > 0}
+    extra_work = {opt.ref_score_start_iter + 1, opt.indirect_from_iter + 1}  # mining, the onset
+    stretch = {}
+    for name, lo, hi in (("initial", 2, opt.init_until_iter),
+                         ("surfel, before the warp", opt.init_until_iter + 2, opt.multi_view_weight_from_iter),
+                         ("surfel, with the warp", opt.multi_view_weight_from_iter + 2, opt.indirect_from_iter),
+                         ("surfel2, before LPIPS", opt.indirect_from_iter + 2, opt.perceptual_loss_start_iter),
+                         ("surfel2, with LPIPS", opt.perceptual_loss_start_iter + 2, REAL_ITERS)):
+        w = sorted(walls[i] - walls[i - 1] for i in range(lo, hi + 1) if i not in redo | extra_work)
+        stretch[name] = w[len(w) // 2] if w else float("nan")
+        print(f"  host s/step, {name} (iterations {lo}-{hi}, median of {len(w)} without a redo): "
+              f"{stretch[name]:.4f}")
+    mine_s, coverage = tr.ref_score_log[0]
+    mesh_it, mesh_tris, mesh_s = tr.mesh_log[0]
+    print(f"  mine_ref_scores at {W}x{H}: {mine_s:.2f} s for {len(tr.cameras)} views (masks cover "
+          f"{100 * coverage:.2f} %); unbounded TSDF at {mesh_it}: {mesh_tris} triangles in {mesh_s:.1f} s; renders "
+          f"redone {sum(m['renders_redone'] for m in log)}; n_alive {log[-1]['n_alive']}, env_n_alive "
+          f"{log[-1]['env_n_alive']}")
+
+    # The LPIPS network at this size (CUDA events): forward, and forward with
+    # the backward to the rendered image.
+    wts = tr.lpips_weights
+    gt = tr.images[0]
+    x = torch.clamp(gt + 0.05 * torch.randn(gt.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(0)),
+                    0, 1).requires_grad_(True)
+    with torch.no_grad():
+        for _ in range(2):
+            lpips_mod.lpips(x, gt, wts)
+        f_ms = cuda_ms(torch, lambda: lpips_mod.lpips(x, gt, wts), 5)
+
+    def fwd_bwd():
+        torch.autograd.grad(lpips_mod.lpips(x, gt, wts), x)
+
+    fwd_bwd()
+    fb_ms = cuda_ms(torch, fwd_bwd, 5)
+    lp_flops = lpips_flops(H, W)
+    print(f"  LPIPS at {W}x{H} (random weights, float32, TF32 off): forward {f_ms:.2f} ms, forward + backward to the "
+          f"image {fb_ms:.2f} ms; {lp_flops / 1e12:.3f} TFLOP per VGG16 pass -> {lp_flops / PEAK_FP32_FLOPS * 1e3:.2f} "
+          f"ms at the FP32 peak; a step runs 2 passes forward and 1 backward (~{3 * lp_flops / 1e12:.2f} TFLOP)")
+
+    # One profiled surfel2 step with LPIPS on, then (c): the kernels at the
+    # inputs of the step after it.
+    it = REAL_ITERS + 1
+    tr._run_step(it, "surfel2")  # warm-up; raises a budget through its redo if it must
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t1 = time.perf_counter()
+        met = tr._run_step(it + 1, "surfel2")
+        float(met["loss"])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    ev_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev_) / 1e3
+    check("perceptual_loss" in met, "the profiled step ran without LPIPS")
+    print(f"  profiled surfel2 step {it + 1} (LPIPS on, warp on {met['warp_on']}, {int(met['tracer_pairs'])} env-trace "
+          f"pairs, renders redone {met['renders_redone']}): {prof_ms:.1f} ms with {busy:.1f} ms of device kernels "
+          f"-> device busy {100 * busy / prof_ms:.1f} %")
+    print("  top device kernels (ms per step, launches per step):")
+    for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f}  {e.count:5d}  {e.key[:90]}")
+    del prof, ev_
+
+    tcap = []
+    real_tbwd = tracer_api.trace_bundles_bwd
+
+    def capturing_bwd(payload, rays, seg_start, seg_count, seg_active, fwd_out, cot, **kw):
+        used = payload[:, : int(seg_start[-1]) + 128].clone()
+        tcap.append(((used, rays.clone(), seg_start.clone(), seg_count.clone(), seg_active.clone(), fwd_out.clone(),
+                      cot.clone()), dict(kw)))
+        return real_tbwd(payload, rays, seg_start, seg_count, seg_active, fwd_out, cot, **kw)
+
+    tracer_api.trace_bundles_bwd = capturing_bwd
+    try:
+        rcap = capture_raster(torch, api, lambda: tr._run_step(it + 2, "surfel2"))
+    finally:
+        tracer_api.trace_bundles_bwd = real_tbwd
+    check(len(tcap) == 1 and len(rcap) >= 1, f"the captured step launched the tracer backward {len(tcap)} times")
+    # The view's own render (S = 10) where the warp's geometry-only render of
+    # its neighbour is captured beside it.
+    main_cap = max(rcap, key=lambda c: c[1]["S"])
+    raster = raster_at(np, torch, f"refreal surfel2 step {it + 2}, {W}x{H}", main_cap)
+    del rcap, main_cap
+    trace = tracer_at(np, torch, tcap[0], f"refreal surfel2 step {it + 2}, {W}x{H}")
+    del tcap
+
+    # (d) serve the test views through the eval CLI.
+    for fn in kernels:
+        fn.launches = 0
+    ev = eval_torch.main(["-m", out_dir, "-s", scene_dir, "--skip_train"])["test"]
+    serve_launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"  eval of the refreal checkpoint at {W}x{H}: {len(ev['per_view_psnr'])} test views, psnr {ev['psnr']:.3f} "
+          f"dB, ssim {ev['ssim']:.5f}, lpips (random weights) {ev['lpips']:.4f}, {ev['fps']:.2f} views/s, tracer "
+          f"overflow {ev['tracer_overflow']}, renders redone {ev['tracer_redos']}; kernel launches {serve_launches}")
+    check(len(ev["per_view_psnr"]) == REAL_VIEWS - len(tr.cameras) and math.isfinite(ev["psnr"])
+          and ev["tracer_overflow"] == 0 and ev["overflow"] == 0, "the refreal eval failed")
+    check(serve_launches["trace_bundles_fwd"] > 0, "the refreal eval did not trace the env-GS model")
+    print(f"refreal path (phase 16, {smi_line}): s/step {', '.join(f'{k} {v:.4f}' for k, v in stretch.items())}; "
+          f"LPIPS fwd {f_ms:.2f} ms, fwd+bwd {fb_ms:.2f} ms; busy {100 * busy / prof_ms:.1f} %; peak {peak:.2f} GiB; "
+          f"mining {mine_s:.2f} s; TSDF {mesh_s:.1f} s; serve {ev['fps']:.2f} views/s")
+    return dict(launches=launches, raster=raster, trace=trace)
 
 
 def pow2_at_least(n):
@@ -1183,12 +1611,6 @@ def main() -> int:
         print("  top device kernels (ms per step, launches per step):")
         for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  {e.self_device_time_total / 1e3 / 3:9.3f}  {e.count // 3:5d}  {e.key[:90]}")
-    # Input (ii): one more step of the compressed-reset state (no pixel stops
-    # early after the opacity resets, so every walk runs its tile's list).
-    cap_ii = capture_raster(torch, api, lambda: time_steps(trainer, "surfel", TRAIN_ITERS + 10, 1))
-    check(len(cap_ii) == 1, f"one surfel step launched the rasterizer backward {len(cap_ii)} times")
-    raster_ii = raster_at(np, torch, "input (ii), a surfel step after iteration 60", cap_ii[0])
-    del cap_ii
 
     # ----------------------------------------------------------------- 10 --
     phase("10. serve a full-width env-GS (surfel2) refnerf checkpoint through scripts/eval_torch.py")
@@ -1378,8 +1800,6 @@ def main() -> int:
         for _ in range(3):
             trace_fn(*targs, **tkw)
         k_ms = cuda_ms(torch, lambda: trace_fn(*targs, **tkw), 10)
-        if what == TRACE_ROW:
-            time_trace_bwd(targs, tkw, out_t, work_t)
         del out_t
         NBt = targs[1].shape[0]
         print(f"  {what}: {NBt} bundles, {int(targs[3].sum())} pairs in segments, "
@@ -1398,45 +1818,10 @@ def main() -> int:
               f"{work_t['contribs']} composited, {work_t['sort_compares']:.0f} sort compares); "
               f"kernel at {100 * max(tb_, to_) / k_ms:.1f} % of it")
 
-    bwd_ring = {}
-
-    def time_trace_bwd(targs, tkw, out_t, work_t):
-        """The backward kernel at this launch's inputs (exact order: the walk
-        covers the NPROC chunks the forward processed) with a cotangent from
-        a seed, against its plain version on every bundle (timed in its
-        comparison run); its bound from the forward's work counts, which
-        count the same walked chunks, hits and composited hits."""
-        n_sh = tkw["n_sh"]
-        active = torch.amax(out_t[..., 10], dim=1).to(torch.int32) * 128
-        cot = torch.zeros_like(out_t)
-        cot[..., :8] = torch.randn(out_t.shape[:2] + (8,), device=dev,
-                                   generator=torch.Generator(device=dev).manual_seed(11))
-        bargs = (*targs, active, out_t, cot)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dp, dr = trace_bwd_fn(*bargs, **tkw)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        res_b = {}
-        p_ms = cuda_ms(torch, lambda: res_b.update(ref=trace_bwd.trace_bundles_bwd_plain(*bargs, **tkw)), 1)
-        rp, rr = res_b.pop("ref")
-        err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh, f"ring view 0 backward, every bundle (n_sh={n_sh}, "
-                                f"exact order, {int(active.max()) // 128} chunks in the longest walk)")
-        del dp, dr, rp, rr
-        ms_ = cuda_ms(torch, lambda: trace_bwd_fn(*bargs, **tkw), 3)
-        pairs_read = work_t["hit_tests"] // 256
-        b_bytes = trace_bwd_bytes(n_sh, pairs_read, targs[1].shape[0])
-        b_flops = trace_bwd_flops(work_t, n_sh, True)
-        tb_, to_ = b_bytes / PEAK_BYTES_PER_S * 1e3, b_flops / PEAK_FP32_FLOPS * 1e3
-        bwd_ring.update(ms=ms_, bound=max(tb_, to_), by="bytes" if tb_ >= to_ else "operations", peak=peak,
-                        plain_ms=p_ms, err=err)
-        print(f"    backward kernel at these inputs (n_sh={n_sh}, exact, {int(active.max()) // 128} chunks in the "
-              f"longest walk): {ms_:.3f} ms; bound {max(tb_, to_):.4f} ms (by {bwd_ring['by']}: "
-              f"{b_bytes / 1e6:.1f} MB -> {tb_:.4f} ms, {b_flops / 1e9:.3f} GFLOP -> {to_:.4f} ms); kernel at "
-              f"{100 * max(tb_, to_) / ms_:.1f} % of it; plain version {p_ms:.1f} ms (timed in its comparison "
-              f"run); peak device memory of the kernel's call {peak:.2f} GiB")
-
-    for vset, (_, cams) in view_sets.items():
+    # The close-up view holds each launch kind to its plain version (at a
+    # ring view the plain walks take 10-19 s a launch kind).
+    for vset in ("close",):
+        cams = view_sets[vset][1]
         # The budgets the eval ended at for this view set.
         c_pairs, pairs_ = (max(served[vset, r]["metrics"]["tracer_budgets"][i] for r in "ab") for i in (0, 1))
         tr_cfg = tracer_api.TracerConfig(exact_order=True, pair_capacity=pairs_, cluster_pair_capacity=c_pairs)
@@ -1517,8 +1902,8 @@ def main() -> int:
     # CPU (tests/test_torch_train_surfel2.py).
     s2_argv = ["-s", train_scene, "-m", s2_run, "--schedule_scale", "0.01", "--start_ply", start_dir,
                "--start_iter", str(S2_START), "--iterations", str(S2_END), "--capacity", str(1 << 19),
-               "--pair_capacity", str(1 << 20), "--densify_until_iter", str(S2_START), "--log_every", "1",
-               "--test_iterations", *map(str, S2_TEST_MARKS)]
+               "--pair_capacity", str(1 << 20), "--densify_until_iter", str(S2_START), "--mesh_every", "1000",
+               "--log_every", "1", "--test_iterations", *map(str, S2_TEST_MARKS)]
     print("  python scripts/train_torch.py " + " ".join(s2_argv))
     torch.cuda.reset_peak_memory_stats()
     for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn):
@@ -1579,40 +1964,6 @@ def main() -> int:
           "eval of the surfel2 checkpoint failed")
     s2_wall = sorted(b["wall"] - a["wall"] for a, b in zip(s2_log, s2_log[1:]) if b["renders_redone"] == 0)
     print(f"  host s/step during the run (median of the steps without a redo): {s2_wall[len(s2_wall) // 2]:.3f}")
-
-    # The main model's densify, prune and opacity reset inside surfel2 (the
-    # run above holds them off), from phase 10's main cloud: phase 4's model,
-    # which rendered the train views, with its splats turned to lie in the
-    # shell. Its splats pass the 20-pixel screen-size prune, and its smooth
-    # normals keep the env trace within the tracer's budget (phase 4's random
-    # orientations ask for 95-126M env-trace pairs a step, past the 67M cap).
-    d_run = os.path.join(work_dir, "surfel2_densify_run")
-    d_start = os.path.join(work_dir, "surfel2_densify_start")
-    gaussian_io.save_ply(s2_model, os.path.join(d_start, "point_cloud.ply"), env1=env)
-    d_argv = ["-s", train_scene, "-m", d_run, "--schedule_scale", "0.01", "--start_ply", d_start,
-              "--start_iter", str(S2_START), "--iterations", str(S2_DENSIFY_END), "--capacity", str(1 << 19),
-              "--pair_capacity", str(1 << 20), "--log_every", "1"]
-    print("  python scripts/train_torch.py " + " ".join(d_argv))
-    t0 = time.perf_counter()
-    d_res = train_torch.main(d_argv)
-    torch.cuda.synchronize()
-    d_s = time.perf_counter() - t0
-    d_log = d_res["trainer"].metrics_log
-    d_alive = [m["n_alive"] for m in d_log]
-    d_wall = sorted(b["wall"] - a["wall"] for a, b in zip(d_log, d_log[1:]) if b["renders_redone"] == 0)
-    print(f"  densify run: {len(d_log)} steps in {d_s:.1f} s, n_alive per step {d_alive} (start {P_SPLATS}); "
-          f"host s/step (median of the steps without a redo) {d_wall[len(d_wall) // 2]:.3f}; mean opacity "
-          f"after the run {float(d_res['trainer'].state.model.get_opacity[d_res['trainer'].state.model.alive].mean()):.4f}")
-    check([m["iteration"] for m in d_log] == list(range(S2_START + 1, S2_DENSIFY_END + 1)),
-          "the densify run skipped iterations")
-    check(all(m["stage"] == "surfel2" for m in d_log), "a step of the densify run is not surfel2")
-    check(len(set(d_alive)) > 1 and min(d_alive) > P_SPLATS // 2,
-          "densify and prune inside surfel2 left n_alive unchanged or pruned most of the model")
-    check(all(m["overflow"] == 0 and m["tracer_overflow"] == 0 and m["mesh_cull_dropped"] == 0 for m in d_log),
-          "a step of the densify run was applied truncated")
-    check(all(math.isfinite(m["loss"]) for m in d_log), "non-finite loss in the densify run")
-    for name, prm in d_res["trainer"].state.params().items():
-        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after the densify run")
 
     # ----------------------------------------------------------------- 13 --
     phase("13. learning check: 30 full-width surfel2 steps, densification, resets and re-extraction off")
@@ -1681,65 +2032,10 @@ def main() -> int:
         tapi_mod.trace_bundles_bwd = real_bwd
     peak2 = torch.cuda.max_memory_allocated() / 2**30
     check(len(step_cap) == 1, f"one training step launched the tracer backward {len(step_cap)} times")
-    (sargs, skw), = step_cap
-    n_sh_s = skw["n_sh"]
-    # The kernel against its plain version on every bundle of the step (the
-    # silhouette bundles' walks of hundreds of chunks included), the plain
-    # version timed in its comparison run, the bound from its work counts.
-    dp, dr = trace_bwd_fn(*sargs, **skw)
-    torch.cuda.synchronize()
-    swork, sres = {}, {}
-    s_plain_ms = cuda_ms(torch, lambda: sres.update(ref=trace_bwd.trace_bundles_bwd_plain(*sargs, **skw, work=swork)), 1)
-    rp, rr = sres.pop("ref")
-    s_bwd_err = compare_trace_bwd(np, torch, dp, dr, rp, rr, n_sh_s,
-                                  f"training step {it_next} backward, every bundle (n_sh={n_sh_s}, "
-                                  f"{'exact' if skw['exact_order'] else 'list'} order)")
-    del dp, dr, rp, rr
-    for _ in range(3):
-        trace_bwd_fn(*sargs, **skw)
-    s_ms = cuda_ms(torch, lambda: trace_bwd_fn(*sargs, **skw), 10)
-    NBs = sargs[1].shape[0]
-    s_bytes = trace_bwd_bytes(n_sh_s, swork["hit_tests"] // 256, NBs)
-    s_flops = trace_bwd_flops(swork, n_sh_s, skw["exact_order"])
-    tb_, to_ = s_bytes / PEAK_BYTES_PER_S * 1e3, s_flops / PEAK_FP32_FLOPS * 1e3
-    s_bound, s_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
-    print(f"  tracer bwd at the step's inputs ({NBs} bundles, {int((sargs[3] > 0).sum())} with pairs, "
-          f"{int(sargs[3].sum())} pairs, {int(sargs[4].max()) // 128} chunks in the longest walk): kernel ms "
-          f"{s_ms:.4f}; plain version ms {s_plain_ms:.1f} (timed in its comparison run)")
-    print(f"  tracer bwd bound ms: {s_bound:.4f} (by {s_by}: {s_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
-          f"{s_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {swork['hit_tests']} hit tests, {swork['hits']} hits, "
-          f"{swork['contribs']} composited, {swork['sort_compares']:.0f} sort compares); kernel at "
-          f"{100 * s_bound / s_ms:.1f} % of it")
-    print("  tracer bwd library call: none computes this function")
-
-    # The forward kernel at the same step's inputs: against its plain version
-    # on every bundle, its time, the plain version's (timed in its comparison
-    # run) and its bound from the plain version's work; the step's walks.
-    fargs, fkw = sargs[:4], {k: skw[k] for k in ("n_sh", "tmin", "exact_order")}
-    fo = trace_fn(*fargs, **fkw)
-    torch.cuda.synchronize()
-    check(torch.equal(fo, sargs[5]), "the forward kernel gave the step another output on the same inputs")
-    fwork, fres = {}, {}
-    f_plain_ms = cuda_ms(torch, lambda: fres.update(ref=trace_fwd.trace_bundles_fwd_plain(*fargs, **fkw, work=fwork)), 1)
-    f_err = compare_trace(np, fo.cpu().numpy(), fres.pop("ref").cpu().numpy(),
-                          f"training step {it_next} forward, every bundle (n_sh={n_sh_s})")
-    walk_histogram(torch, sargs[3], fo[:, 0, 10], sargs[0].shape[1], f"training step {it_next}")
-    del fo
-    for _ in range(3):
-        trace_fn(*fargs, **fkw)
-    f_ms = cuda_ms(torch, lambda: trace_fn(*fargs, **fkw), 10)
-    f_pairs = fwork["hit_tests"] // 256
-    f_bytes = 4 * ((13 + 3 * n_sh_s) * f_pairs + NBs * 256 * 8 + NBs * 256 * 16 + 2 * NBs + 1)
-    f_flops = trace_flops(fwork, n_sh_s, skw["exact_order"])
-    tb_, to_ = f_bytes / PEAK_BYTES_PER_S * 1e3, f_flops / PEAK_FP32_FLOPS * 1e3
-    f_bound, f_by = max(tb_, to_), ("bytes" if tb_ >= to_ else "operations")
-    print(f"  tracer fwd at the step's inputs: kernel ms {f_ms:.4f}; plain version ms {f_plain_ms:.1f} (timed in "
-          f"its comparison run)")
-    print(f"  tracer fwd bound ms: {f_bound:.4f} (by {f_by}: {f_bytes / 1e6:.2f} MB -> {tb_:.4f} ms, "
-          f"{f_flops / 1e9:.4f} GFLOP -> {to_:.4f} ms: {fwork['hit_tests']} hit tests, {fwork['hits']} hits, "
-          f"{fwork['contribs']} composited, {fwork['sort_compares']:.0f} sort compares); kernel at "
-          f"{100 * f_bound / f_ms:.1f} % of it")
-    del step_cap, sargs, fargs
+    tr_iii = tracer_at(np, torch, step_cap[0], f"training step {it_next}")
+    s_ms, s_plain_ms, s_bound, s_by, s_bwd_err = (tr_iii["bwd"][k] for k in ("ms", "plain_ms", "bound", "by", "err"))
+    f_ms, f_plain_ms, f_bound, f_by, f_err = (tr_iii["fwd"][k] for k in ("ms", "plain_ms", "bound", "by", "err"))
+    del step_cap
     check(len(cap_iii) == 1, f"one surfel2 step launched the rasterizer backward {len(cap_iii)} times")
     raster_iii = raster_at(np, torch, f"input (iii), surfel2 training step {it_next}", cap_iii[0])
     del cap_iii
@@ -1813,10 +2109,10 @@ def main() -> int:
 
     # (a) refnerf as users run it, across the gate (25000 x 0.01 = 250):
     # phase 12's checkpoint (main + env PLY) on this scene, the onset's env
-    # init skipped (the env PLY), mesh extracted at 241, 30 surfel2 steps.
+    # init skipped (the env PLY), mesh extracted at 241, 20 surfel2 steps.
     # Cuts: phase 12's (the main model's densify and resets off past 240),
     # and --mesh_every 1000: no re-extraction in the run (each TSDF over the
-    # 24 views costs about as much as the 30 steps).
+    # 24 views costs about as much as 30 steps).
     a_run = os.path.join(work_dir, "warp_run_a")
     a_start = os.path.dirname(s2_res["ply"])  # phase 12's iteration_240: point_cloud.ply + env_point_cloud.ply
     a_argv = ["-s", warp_scene, "-m", a_run, "--schedule_scale", "0.01", "--start_ply", a_start,
@@ -1881,7 +2177,7 @@ def main() -> int:
     # launches).
     snap = copy.deepcopy(a_tr.state)
     pair_it = WARP_A_END + 1
-    pair_rounds = 3
+    pair_rounds = 2
 
     def paired_step(cam_id, near_id, warp_on, profile=False):
         a_tr.state = copy.deepcopy(snap)
@@ -2015,18 +2311,23 @@ def main() -> int:
           f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in pair_busy.items()} }; rasterizer launches per warp step "
           f"forward 2, backward 2; mine_ref_scores {mine_s:.2f} s")
 
+    # ----------------------------------------------------------------- 16 --
+    phase("16. train and serve refreal (COLMAP, -r 4, LPIPS) at full width through scripts/train_torch.py")
+    real = refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, eval_torch)
+    rr_, rt_ = real["raster"], real["trace"]
+
     record = {"kernels": [
         {
             "name": "rasterize_tiles_fwd",
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
-            "launches": a_launches["rasterize_tiles_fwd"],
-            "max_abs_err": max(full_err, raster_ii["fwd"]["err"], raster_iii["fwd"]["err"]),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "launches": real["launches"]["rasterize_tiles_fwd"],
+            "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"]),
+            "ms": rr_["fwd"]["ms"],
+            "plain_ms": rr_["fwd"]["plain_ms"],
+            "bound_ms": rr_["fwd"]["bound"],
+            "bound_by": rr_["fwd"]["by"],
             "library_ms": None,
         },
         {
@@ -2034,12 +2335,12 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
-            "launches": a_launches["rasterize_tiles_bwd"],
-            "max_abs_err": max(bwd_err, raster_ii["bwd"]["err"], raster_iii["bwd"]["err"]),
-            "ms": bwd_times[9]["ms"],
-            "plain_ms": plain_bwd_ms,
-            "bound_ms": bwd_times[9]["bound"],
-            "bound_by": bwd_times[9]["by"],
+            "launches": real["launches"]["rasterize_tiles_bwd"],
+            "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"]),
+            "ms": rr_["bwd"]["ms"],
+            "plain_ms": rr_["bwd"]["plain_ms"],
+            "bound_ms": rr_["bwd"]["bound"],
+            "bound_by": rr_["bwd"]["by"],
             "library_ms": None,
         },
         {
@@ -2047,12 +2348,12 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:348",
-            "launches": a_launches["trace_bundles_fwd"],
-            "max_abs_err": max([t["err"] for t in trace_times.values()] + [f_err]),
-            "ms": f_ms,
-            "plain_ms": f_plain_ms,
-            "bound_ms": f_bound,
-            "bound_by": f_by,
+            "launches": real["launches"]["trace_bundles_fwd"],
+            "max_abs_err": max([t["err"] for t in trace_times.values()] + [f_err, rt_["fwd"]["err"]]),
+            "ms": rt_["fwd"]["ms"],
+            "plain_ms": rt_["fwd"]["plain_ms"],
+            "bound_ms": rt_["fwd"]["bound"],
+            "bound_by": rt_["fwd"]["by"],
             "library_ms": None,
         },
         {
@@ -2060,38 +2361,35 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:586",
-            "launches": a_launches["trace_bundles_bwd"],
-            "max_abs_err": max(tbwd_errs + [s_bwd_err] + ([bwd_ring["err"]] if bwd_ring else [])),
-            "ms": s_ms,
-            "plain_ms": s_plain_ms,
-            "bound_ms": s_bound,
-            "bound_by": s_by,
+            "launches": real["launches"]["trace_bundles_bwd"],
+            "max_abs_err": max(tbwd_errs + [s_bwd_err, rt_["bwd"]["err"]]),
+            "ms": rt_["bwd"]["ms"],
+            "plain_ms": rt_["bwd"]["plain_ms"],
+            "bound_ms": rt_["bwd"]["bound"],
+            "bound_by": rt_["bwd"]["by"],
             "library_ms": None,
         },
     ]}
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
-          + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a), the record's) launches: "
-          f"{a_launches}")
-    print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (ii) "
-          f"{raster_ii['fwd']['ms']:.4f} ms (bound {raster_ii['fwd']['bound']:.4f}, plain "
-          f"{raster_ii['fwd']['plain_ms']:.1f}); (iii) {raster_iii['fwd']['ms']:.4f} ms (bound "
-          f"{raster_iii['fwd']['bound']:.4f}, plain {raster_iii['fwd']['plain_ms']:.1f}); bit-identical at all three")
+          + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a)) launches: {a_launches}; "
+          f"refreal path (phase 16 (b), the record's) launches: {real['launches']}")
+    print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (iii) "
+          f"{raster_iii['fwd']['ms']:.4f} ms (bound {raster_iii['fwd']['bound']:.4f}, plain "
+          f"{raster_iii['fwd']['plain_ms']:.1f}); bit-identical at both")
     print(f"rasterizer backward: input (i) {bwd_times[9]['ms']:.4f} ms (bound {bwd_times[9]['bound']:.4f}, plain "
-          f"{plain_bwd_ms:.1f}, largest err/tol {bwd_ratio:.3e}); (ii) {raster_ii['bwd']['ms']:.4f} ms (bound "
-          f"{raster_ii['bwd']['bound']:.4f}, plain {raster_ii['bwd']['plain_ms']:.1f}, largest err/tol "
-          f"{raster_ii['bwd']['ratio']:.3e}); (iii) {raster_iii['bwd']['ms']:.4f} ms (bound "
+          f"{plain_bwd_ms:.1f}, largest err/tol {bwd_ratio:.3e}); (iii) {raster_iii['bwd']['ms']:.4f} ms (bound "
           f"{raster_iii['bwd']['bound']:.4f}, plain {raster_iii['bwd']['plain_ms']:.1f}, largest err/tol "
           f"{raster_iii['bwd']['ratio']:.3e})")
-    ring = trace_times[TRACE_ROW]
-    print(f"tracer forward at ring view 0's env trace: {ring['ms']:.3f} ms, bound {ring['bound']:.4f} ms "
-          f"({ring['by']}), plain {ring['plain_ms']:.1f} ms; at the surfel2 step: {f_ms:.4f} ms, bound "
-          f"{f_bound:.4f} ms, plain {f_plain_ms:.1f} ms")
-    if bwd_ring:
-        print(f"tracer backward at ring view 0's env trace: {bwd_ring['ms']:.3f} ms, bound {bwd_ring['bound']:.4f} ms "
-              f"({bwd_ring['by']}), plain {bwd_ring['plain_ms']:.1f} ms, peak {bwd_ring['peak']:.2f} GiB; at the "
-              f"surfel2 step: {s_ms:.4f} ms, bound {s_bound:.4f} ms, plain {s_plain_ms:.1f} ms")
+    print(f"tracer at the surfel2 step (phase 14): forward {f_ms:.4f} ms, bound {f_bound:.4f} ms, plain "
+          f"{f_plain_ms:.1f} ms; backward {s_ms:.4f} ms, bound {s_bound:.4f} ms, plain {s_plain_ms:.1f} ms")
+    print(f"refreal at 1236x821 (phase 16 (c)): rasterizer forward {rr_['fwd']['ms']:.4f} ms (bound "
+          f"{rr_['fwd']['bound']:.4f}, plain {rr_['fwd']['plain_ms']:.1f}), backward {rr_['bwd']['ms']:.4f} ms (bound "
+          f"{rr_['bwd']['bound']:.4f}, plain {rr_['bwd']['plain_ms']:.1f}, largest err/tol {rr_['bwd']['ratio']:.3e}); "
+          f"tracer forward {rt_['fwd']['ms']:.4f} ms (bound {rt_['fwd']['bound']:.4f}, plain "
+          f"{rt_['fwd']['plain_ms']:.1f}), "
+          f"backward {rt_['bwd']['ms']:.4f} ms (bound {rt_['bwd']['bound']:.4f}, plain {rt_['bwd']['plain_ms']:.1f})")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,9 +2,13 @@
 Splatting framework, targeting NVIDIA Hopper (sm_90a).
 
 The package mirrors `materialrefgs_tpu`'s module names so each module's
-counterpart is easy to find. The one hand-written kernel of the serving path
-(the tile rasterizer forward, `ops/rasterize/tiles_fwd.py`) is CUDA C++ under
-`csrc/`, built with nvcc at first use; everything around it is plain torch.
+counterpart is easy to find. Each of the JAX package's four Pallas kernels
+has a hand-written CUDA C++ counterpart under `csrc/`, built with nvcc at
+first use and bound with ctypes: the tile rasterizer's forward and backward
+(`ops/rasterize/tiles_fwd.py`, `tiles_bwd.py`) and the bundle tracer's
+forward and backward (`ops/tracer/trace_fwd.py`, `trace_bwd.py`). Beside
+each runs a plain torch version of the same function, which CPU tensors
+take; everything around the kernels is plain torch.
 
 Entry points run on the card unless the caller asks for the CPU explicitly
 (`resolve_device("cpu")`, `--device cpu`).

@@ -1,7 +1,10 @@
-"""Dataset readers (reference scene/dataset_readers.py), Blender layout.
+"""Dataset readers (reference scene/dataset_readers.py): Blender + COLMAP.
 
 Returns SceneInfo with CameraInfo lists; images are decoded lazily as float32
-(H, W, 3) channel-last arrays by the numpy PNG codec (utils/png.py).
+(H, W, 3) channel-last arrays by the numpy PNG codec (utils/png.py), and
+downscaled as Pillow's LANCZOS does (utils/resample.py). Images must be PNG:
+the card machines have no Pillow, and the port's JPEG decoder is still to
+come (ROADMAP.md A13).
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ from typing import NamedTuple
 import numpy as np
 
 from materialrefgs_torch.cameras import focal2fov, fov2focal, world_to_view
-from materialrefgs_torch.utils import png
+from materialrefgs_torch.data import colmap_loader as cl
+from materialrefgs_torch.utils import png, resample
 from materialrefgs_torch.utils.ply import read_point_cloud_ply, write_point_cloud_ply
 
 
@@ -45,14 +49,29 @@ class SceneInfo(NamedTuple):
     ply_path: str
 
 
-def load_image(info: CameraInfo, resolution_scale: int = 1) -> np.ndarray:
-    """(H, W, 3) float32 in [0,1]; alpha composited over the background."""
-    if resolution_scale != 1:
+def require_png(path: str) -> None:
+    """Raise NotImplementedError for an image the port cannot decode yet."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head != b"\x89PNG\r\n\x1a\n":
         raise NotImplementedError(
-            "downscaled image loading (resolution_scale != 1) needs a "
-            "resampler and comes with the COLMAP/refreal slice"
+            f"{path} is not a PNG image: the port decodes PNG only, until its "
+            "JPEG decoder lands (ROADMAP.md A13, the JPEG decoder); convert the "
+            "images to PNG meanwhile"
         )
-    arr = png.read_png(info.image_path).astype(np.float32) / 255.0
+
+
+def load_image(info: CameraInfo, resolution_scale: int = 1) -> np.ndarray:
+    """(H, W, 3) float32 in [0,1]; alpha composited over the background.
+    resolution_scale != 1 resizes the image in its own mode (RGBA
+    premultiplied) to (width // scale, height // scale) with Pillow's LANCZOS,
+    as the JAX package's Image.resize does."""
+    require_png(info.image_path)
+    arr = png.read_png(info.image_path)
+    if resolution_scale != 1:
+        size = (info.width // resolution_scale, info.height // resolution_scale)
+        arr = resample.resize(arr, size, resample.LANCZOS)
+    arr = arr.astype(np.float32) / 255.0
     if arr.shape[-1] == 1:  # gray -> RGB, opaque
         arr = np.repeat(arr, 3, axis=-1)
     if arr.shape[-1] == 3:
@@ -129,13 +148,84 @@ def read_blender_scene(
     return SceneInfo(pcd, train, test, norm, ply_path)
 
 
+def read_colmap_scene(
+    path: str, images_dir: str = "images", eval_split: bool = False, llffhold: int = 8
+) -> SceneInfo:
+    """readColmapSceneInfo (dataset_readers.py:199-247): SIMPLE_PINHOLE and
+    PINHOLE cameras with their intrinsics K, views sorted by name, every
+    llffhold-th view held out for test, the sparse points cached as
+    points3D.ply beside them. The JAX package reads images.bin and
+    points3D.bin through an optional native parser first; the port reads
+    them with the pure parser that is its fallback (ROADMAP.md A14)."""
+    sparse = os.path.join(path, "sparse", "0")
+    if not os.path.isdir(sparse):
+        sparse = os.path.join(path, "sparse")
+    try:
+        extr = cl.read_extrinsics_binary(os.path.join(sparse, "images.bin"))
+        intr = cl.read_intrinsics_binary(os.path.join(sparse, "cameras.bin"))
+    except FileNotFoundError:
+        extr = cl.read_extrinsics_text(os.path.join(sparse, "images.txt"))
+        intr = cl.read_intrinsics_text(os.path.join(sparse, "cameras.txt"))
+
+    infos = []
+    for idx, key in enumerate(sorted(extr.keys(), key=lambda k: extr[k].name)):
+        ext = extr[key]
+        cam = intr[ext.camera_id]
+        R = np.transpose(cl.qvec2rotmat(ext.qvec))
+        T = np.array(ext.tvec)
+        H, W = cam.height, cam.width
+        if cam.model == "SIMPLE_PINHOLE":
+            f, cx, cy = cam.params[:3]
+            K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]])
+            fovx = focal2fov(f, W)
+            fovy = focal2fov(f, H)
+        elif cam.model == "PINHOLE":
+            fx, fy, cx, cy = cam.params[:4]
+            K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+            fovx = focal2fov(fx, W)
+            fovy = focal2fov(fy, H)
+        else:
+            raise ValueError(f"Unsupported COLMAP camera model {cam.model}; undistort first.")
+        img_path = os.path.join(path, images_dir, ext.name)
+        infos.append(
+            CameraInfo(
+                uid=idx, R=R, T=T, K=K, FovY=fovy, FovX=fovx,
+                image_path=img_path, image_name=Path(ext.name).stem,
+                width=W, height=H,
+            )
+        )
+
+    if eval_split:
+        train = [c for i, c in enumerate(infos) if i % llffhold != 0]
+        test = [c for i, c in enumerate(infos) if i % llffhold == 0]
+    else:
+        train, test = infos, []
+
+    norm = get_nerfpp_norm(train)
+    ply_path = os.path.join(sparse, "points3D.ply")
+    bin_path = os.path.join(sparse, "points3D.bin")
+    if not os.path.exists(ply_path):
+        if os.path.exists(bin_path):
+            xyz, rgb, _ = cl.read_points3D_binary(bin_path)
+        else:
+            xyz, rgb, _ = cl.read_points3D_text(os.path.join(sparse, "points3D.txt"))
+        try:
+            write_point_cloud_ply(ply_path, xyz, rgb / 255.0)
+        except OSError:
+            pass
+        pcd = BasicPointCloud(
+            xyz.astype(np.float32), (rgb / 255.0).astype(np.float32), np.zeros_like(xyz, dtype=np.float32)
+        )
+    else:
+        pts, cols, nrm = read_point_cloud_ply(ply_path)
+        pcd = BasicPointCloud(pts, cols, nrm)
+    return SceneInfo(pcd, train, test, norm, ply_path)
+
+
 def load_scene_info(path: str, white_background=False, eval_split=False, images="images") -> SceneInfo:
     """Dataset dispatch (scene/__init__.py:46-52)."""
     if os.path.exists(os.path.join(path, "sparse")):
-        raise NotImplementedError(
-            "COLMAP scenes are not ported yet; they come with the refreal "
-            "(COLMAP) slice of the port"
-        )
+        return read_colmap_scene(path, images, eval_split)
     if os.path.exists(os.path.join(path, "transforms_train.json")):
         return read_blender_scene(path, white_background, eval_split)
     raise ValueError(f"Could not recognize scene type at {path}")

@@ -1,8 +1,8 @@
 """Evaluation (reference eval.py): render a camera set, compute PSNR/SSIM
 (+FPS), dump per-map PNGs and metric.txt.
 
-LPIPS is reported as None: the reference's pretrained VGG weights are not
-available offline, and the JAX package reports the same in their absence.
+LPIPS(vgg) is reported when converted weights exist (train/lpips.py), and as
+None without them, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -76,6 +76,12 @@ def render_set(
     dev = model.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     psnrs, ssims, times, normal_maes, overflows, tracer_overflows = [], [], [], [], [], []
+    # LPIPS(vgg) when converted weights exist (reference eval.py:52); absent
+    # weights are reported as lpips=None, never as a silent zero.
+    from materialrefgs_torch.train import lpips as lpips_mod
+
+    lpips_net = lpips_mod.LPIPS(device=dev) if lpips_mod.weights_available() else None
+    lpipses = []
 
     def run(cam, tcfg):
         if stage == "initial":
@@ -123,6 +129,9 @@ def render_set(
         render_c = torch.clamp(pkg["render"], 0.0, 1.0)
         psnrs.append(float(psnr(render_c, gt_t)))
         ssims.append(float(ssim(render_c, gt_t)))
+        if lpips_net is not None:
+            with torch.no_grad():
+                lpipses.append(float(lpips_net(render_c, gt_t)))
         if gt_normals is not None:
             # GT-normal mean angular error in degrees over the foreground.
             ng = np.asarray(gt_normals[idx], np.float32)
@@ -163,7 +172,7 @@ def render_set(
     return {
         "psnr": float(np.mean(psnrs)),
         "ssim": float(np.mean(ssims)),
-        "lpips": None,
+        "lpips": float(np.mean(lpipses)) if lpipses else None,
         "fps": float(fps),
         "per_view_psnr": psnrs,
         "normal_mae": float(np.mean(normal_maes)) if normal_maes else None,

@@ -2,7 +2,8 @@
 
 All image args are (H, W, C), as in the JAX package. Iteration gates are
 multiplied in as 0/1 weights, as the JAX package's traced gates are, so a
-gated-off term still costs its evaluation and contributes exact zeros.
+gated-off term still costs its evaluation and contributes exact zeros; the
+LPIPS term alone is skipped before its gate (train/lpips.py).
 """
 from __future__ import annotations
 
@@ -203,11 +204,16 @@ def calculate_loss(
         tb["loss_depth_smooth"] = ds
         loss = loss + gate * opt.lambda_depth_smooth * ds
 
-    if opt.use_perceptual_loss and lpips_weights is not None:
-        raise NotImplementedError(
-            "the LPIPS perceptual loss is not ported yet; it comes with the "
-            "multi-view/material slice of the port (train/lpips.py)"
-        )
+    if opt.use_perceptual_loss and lpips_weights is not None and it > opt.perceptual_loss_start_iter:
+        # LPIPS perceptual term (loss_utils.py:209-212). Unlike the other
+        # gated terms it is evaluated only past its gate: a VGG16 forward
+        # and backward over the frame is the costliest loss, and a gated-off
+        # term contributes exact zeros either way.
+        from materialrefgs_torch.train import lpips as lpips_mod
+
+        pl = lpips_mod.lpips(img, gt_image, lpips_weights)
+        tb["perceptual_loss"] = pl
+        loss = loss + opt.lambda_perceptual_loss * pl
 
     tb["loss"] = loss
     return loss, tb

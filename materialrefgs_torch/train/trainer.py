@@ -24,9 +24,11 @@ env densify/prune/reset with the signal-counted grace, the env SH ladder and
 the extinction re-seed.
 
 The port runs eagerly, so a step mutates the state in place where the JAX
-step returns a new one. What the later slices bring raises
-NotImplementedError naming the slice: the `volume` stage, the LPIPS loss and
-the `raytracing_residual` indirect type.
+step returns a new one. With use_perceptual_loss the `surfel` and `surfel2`
+steps add the LPIPS term (train/lpips.py) past perceptual_loss_start_iter;
+without weights the Trainer degrades loudly, as the JAX Trainer does. What
+the later slices bring raises NotImplementedError naming the slice: the
+`volume` stage and the `raytracing_residual` indirect type.
 """
 from __future__ import annotations
 
@@ -58,7 +60,6 @@ def _later_slice(what: str) -> NotImplementedError:
     where = {
         "volume": "the volume slice",
         "raytracing_residual": "the mesh-shading slice",
-        "LPIPS": "the LPIPS slice",
     }[what]
     return NotImplementedError(f"{what} training is not ported yet; it comes with {where} of the port")
 
@@ -197,6 +198,7 @@ class TrainStep:
         env_max_roughness: float = 0.5,
         tracer_cfg: TracerConfig = TracerConfig(),
         with_warp: bool = False,
+        lpips_weights: dict | None = None,
     ):
         if stage not in STAGES:
             raise _later_slice("volume")
@@ -210,6 +212,8 @@ class TrainStep:
         self.stage = stage
         self.with_warp = with_warp and stage in ("surfel", "surfel2")
         self.tracer_cfg = tracer_cfg
+        # The perceptual loss applies to the deferred stages (trainer.py:252).
+        self.lpips_weights = lpips_weights if stage in ("surfel", "surfel2") else None
         self.opt = opt
         self.spatial_lr_scale = spatial_lr_scale
         self.envmap_n_samples = envmap_n_samples
@@ -266,7 +270,7 @@ class TrainStep:
         image_weight = None
         if not opt.wo_image_weight:
             image_weight = torch.clamp(1.0 - losses.get_img_grad_weight(gt), 0, 1) ** 2
-        loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight)
+        loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight, self.lpips_weights)
 
         if self.with_warp:
             # Multi-view warp losses (calc_warp_loss, train_refnerf.py:414).
@@ -407,11 +411,13 @@ def make_train_step(
     env_max_roughness: float = 0.5,
     tracer_cfg: TracerConfig = TracerConfig(),
     with_warp: bool = False,
+    lpips_weights: dict | None = None,
 ) -> TrainStep:
     """The step of `initial`, `surfel` or `surfel2`: step(state, camera, gt,
-    extra, mesh=None) -> metrics (see TrainStep)."""
+    extra, mesh=None) -> metrics (see TrainStep). lpips_weights
+    (train/lpips.load_weights) turns the perceptual term on."""
     return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
-                     env_min_roughness, env_max_roughness, tracer_cfg, with_warp)
+                     env_min_roughness, env_max_roughness, tracer_cfg, with_warp, lpips_weights)
 
 
 class Trainer:
@@ -472,12 +478,33 @@ class Trainer:
         virtual_cam_trans_noise: float = 1.5,  # ModelParams.multi_view_max_dis
         virtual_cam_deg_noise: float = 30.0,  # ModelParams.multi_view_max_angle
     ):
-        if opt.use_perceptual_loss:
-            raise _later_slice("LPIPS")
-        self.opt = opt
         self.pipe = pipe
         self.cameras = cameras
         dev = model.device
+        # Load the LPIPS weights or degrade loudly (trainer.py:561-588): the
+        # run starts, the banner says the perceptual loss is off, and
+        # lpips_disabled records it (the CLI writes it to cfg_args.json).
+        self.lpips_weights = None
+        self.lpips_disabled = False
+        if opt.use_perceptual_loss:
+            from materialrefgs_torch.train import lpips as lpips_mod
+
+            try:
+                self.lpips_weights = lpips_mod.load_weights(device=dev)
+            except lpips_mod.LpipsWeightsMissing as e:
+                banner = "!" * 78
+                print(
+                    f"{banner}\n"
+                    "!! PERCEPTUAL (LPIPS) LOSS DISABLED: pretrained VGG16 weights unavailable.\n"
+                    f"!! {e}\n"
+                    "!! Training continues WITHOUT lambda_perceptual_loss (reference "
+                    f"train_refreal.py uses it from iter {opt.perceptual_loss_start_iter}).\n"
+                    f"{banner}",
+                    flush=True,
+                )
+                opt = dataclasses.replace(opt, use_perceptual_loss=False)
+                self.lpips_disabled = True
+        self.opt = opt
         self.images = [torch.as_tensor(np.asarray(im, np.float32), device=dev) for im in images]
         self.masks = (
             [torch.as_tensor(np.asarray(m, np.float32), device=dev) for m in masks] if masks else None
@@ -531,6 +558,7 @@ class Trainer:
                 env_max_roughness=self.envmap_max_roughness,
                 tracer_cfg=self.tracer_cfg,
                 with_warp=warp_on,
+                lpips_weights=self.lpips_weights,
             )
         return self._steps[key]
 

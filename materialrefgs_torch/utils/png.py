@@ -108,8 +108,9 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", crc)
 
 
-def write_png(path: str, img: np.ndarray):
-    """Encode uint8 (H, W, 3) or (H, W, 4) as an RGB or RGBA PNG."""
+def write_png(path: str, img: np.ndarray, level: int = 6):
+    """Encode uint8 (H, W, 3) or (H, W, 4) as an RGB or RGBA PNG (zlib
+    compression `level`, 0-9)."""
     arr = np.ascontiguousarray(img)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] not in (3, 4):
         raise ValueError(f"write_png takes uint8 (H, W, 3|4), got {arr.dtype} {arr.shape}")
@@ -123,5 +124,5 @@ def write_png(path: str, img: np.ndarray):
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", ihdr))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)))
         f.write(_chunk(b"IEND", b""))

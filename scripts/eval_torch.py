@@ -10,6 +10,10 @@ run's cfg_args.json, 1<<14 stage-1 cluster pairs); where a view's traces need
 more, evaluate.render_set redoes it with budgets that fit instead of serving
 it truncated.
 
+A COLMAP scene (refreal) is served at the run's resolution, read from its
+cfg_args.json (`-r` at training). LPIPS is reported when the weights exist
+($MATERIALREFGS_LPIPS_WEIGHTS, train/lpips.py), else None.
+
 Usage: python scripts/eval_torch.py -m output/helmet -s /data/refnerf/helmet
 """
 import argparse
@@ -27,8 +31,9 @@ def load_gt_normals(source_path, image_names, hw):
     (Glossy Synthetic via nero2blender: `normal/{name}.png`; Shiny Blender:
     `test/{name}_normal.png`). Returns (normals, masks) or (None, None).
     PNGs decode as n = 2*rgb - 1; the alpha channel (if any) is the
-    foreground mask."""
-    from materialrefgs_torch.utils import png
+    foreground mask. A map of another size than the renders is resized
+    first, as Pillow's BILINEAR does (scripts/eval.py:36; RGBA premultiplied)."""
+    from materialrefgs_torch.utils import png, resample
 
     layouts = [
         lambda n: os.path.join(source_path, "normal", n + ".png"),
@@ -40,12 +45,10 @@ def load_gt_normals(source_path, image_names, hw):
             continue
         normals, masks = [], []
         for n in image_names:
-            arr = png.read_png(layout(n)).astype(np.float32) / 255.0
+            arr = png.read_png(layout(n))
             if arr.shape[:2] != tuple(hw):
-                raise NotImplementedError(
-                    "GT normal maps of another size than the renders need a "
-                    "resampler; it comes with the COLMAP/refreal slice"
-                )
+                arr = resample.resize(arr, (hw[1], hw[0]), resample.BILINEAR)
+            arr = arr.astype(np.float32) / 255.0
             if arr.shape[-1] == 1:
                 arr = np.repeat(arr, 3, axis=-1)
             normals.append(arr[..., :3] * 2.0 - 1.0)

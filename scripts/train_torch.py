@@ -1,12 +1,24 @@
 """Training CLI of the PyTorch/CUDA port (the counterpart of scripts/train.py)
-for the refnerf curriculum's stages `initial`, `surfel` and `surfel2` (env-GS
-traced indirect light, mesh visibility, exact-order tracing) on
-Blender-layout scenes. Runs on the CUDA card unless --device cpu is given.
+for the three presets' curricula, stages `initial`, `surfel` and `surfel2`
+(env-GS traced indirect light, mesh visibility, exact-order tracing), on
+Blender-layout scenes (refnerf, glossy) and COLMAP scenes (refreal: a
+`sparse/0` model beside `images/`, PNG photos, `-r 4` by the preset). Runs on
+the CUDA card unless --device cpu is given.
 
 Usage:
   python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet
+  python scripts/train_torch.py -s /data/refreal/gardenspheres -m output/gs --preset refreal
   python scripts/train_torch.py -s <scene> -m <out> --schedule_scale 0.01 \
       --iterations 240 --device cpu
+
+-r/--resolution N trains at 1/N of the photos' size (refreal's preset sets
+4), resized as Pillow's LANCZOS does; foreground masks of another size take
+Pillow's NEAREST (refreal reads them from the scene's mask/ dir). With
+use_perceptual_loss (refreal's preset) the LPIPS weights are read from
+$MATERIALREFGS_LPIPS_WEIGHTS (default assets/lpips_vgg.npz, made by
+scripts/convert_lpips_weights.py); without them the run goes on without the
+perceptual term, says so in a banner and records `lpips_disabled` in
+cfg_args.json.
 
 Writes point_cloud/iteration_N/point_cloud.ply (+ the env maps, and past the
 surfel2 onset env_point_cloud.ply) and meshes/test_XXXXXX.ply that
@@ -35,8 +47,9 @@ import numpy as np
 def load_masks(mask_dir, train_infos, hw):
     """Foreground masks from RGBA PNGs (last channel > 128), one per train
     view, or None when any is missing (reference get_mask_dir,
-    train_glossy.py:101-134)."""
-    from materialrefgs_torch.utils import png
+    train_glossy.py:101-134). A mask of another size than the images is
+    resized first, as Pillow's NEAREST does (scripts/train.py:194-195)."""
+    from materialrefgs_torch.utils import png, resample
 
     masks = []
     for ci in train_infos:
@@ -45,10 +58,7 @@ def load_masks(mask_dir, train_infos, hw):
             return None
         arr = png.read_png(p)
         if arr.shape[:2] != tuple(hw):
-            raise NotImplementedError(
-                "masks of another size than the images need a resampler; it "
-                "comes with the COLMAP/refreal slice of the port"
-            )
+            arr = resample.resize(arr, (hw[1], hw[0]), resample.NEAREST)
         masks.append((arr[..., -1] > 128).astype(np.float32))
     return masks
 
@@ -93,6 +103,8 @@ def main(argv=None) -> dict:
     ap.add_argument("-s", "--source_path", required=True)
     ap.add_argument("-m", "--model_path", required=True)
     ap.add_argument("--preset", default="refnerf", choices=["refnerf", "refreal", "glossy"])
+    ap.add_argument("-r", "--resolution", type=int, default=None,
+                    help="image downscale factor (reference -r; refreal's preset: 4)")
     ap.add_argument("--iterations", type=int, default=None)
     ap.add_argument("--schedule_scale", type=float, default=1.0,
                     help="uniformly compress/stretch the whole curriculum by this "
@@ -244,6 +256,14 @@ def main(argv=None) -> dict:
         virtual_cam_trans_noise=model_params.multi_view_max_dis,
         virtual_cam_deg_noise=model_params.multi_view_max_angle,
     )
+    extra_cfg = {"preset": args.preset, "capacity": args.capacity, "seed": args.seed}
+    if trainer.lpips_disabled:
+        # The durable record of the degradation (scripts/train.py:334-342):
+        # the persisted config says the perceptual loss did not run.
+        opt = trainer.opt
+        extra_cfg["lpips_disabled"] = True
+        cfg.dump_config(args.model_path, model_params, pipe, opt,
+                        extra={**extra_cfg, "pair_capacity": args.pair_capacity})
     if args.tracer_pair_capacity:
         # An explicit tracer budget is also its escalation's ceiling.
         trainer.MAX_TRACER_PAIR_CAPACITY = args.tracer_pair_capacity
@@ -324,9 +344,7 @@ def main(argv=None) -> dict:
             # Record the escalated pair capacity, so eval renders the model
             # without dropping pairs.
             cfg.dump_config(args.model_path, model_params, pipe, opt,
-                            extra={"preset": args.preset, "capacity": args.capacity,
-                                   "pair_capacity": trainer.raster_cfg.pair_capacity,
-                                   "seed": args.seed})
+                            extra={**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
             out = os.path.join(args.model_path, f"point_cloud/iteration_{target}/point_cloud.ply")
             gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
             if trainer.state.env_gs is not None:

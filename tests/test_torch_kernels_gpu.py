@@ -48,7 +48,7 @@ def _scene(seed, P, S, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [1, 9, 10])
-@pytest.mark.parametrize("size", [(256, 192), (201, 133)])
+@pytest.mark.parametrize("size", [(256, 192), (201, 133), (1236, 821)])
 def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
     W, H = size
     cam = look_at_camera(
@@ -56,7 +56,7 @@ def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
         0.9, 0.7, W, H, device=cuda_device,
     )
     ti = api.tile_inputs(
-        *_scene(5, 6000, S, cuda_device), cam, config=api.RasterizeConfig(pair_capacity=1 << 19)
+        *_scene(5, 6000, S, cuda_device), cam, config=api.RasterizeConfig(pair_capacity=1 << 22)
     )
     assert int(ti.bins.overflow) == 0
     assert int(ti.bins.tile_count.max()) > 256  # more than one shared-memory batch
@@ -80,7 +80,7 @@ def test_rasterize_fwd_kernel_matches_plain(cuda_device, S, size):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [1, 9, 10])
-@pytest.mark.parametrize("size", [(256, 192), (201, 133)])
+@pytest.mark.parametrize("size", [(256, 192), (201, 133), (1236, 821)])
 def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
     """Per-pair gradients for a random cotangent, every gradient value within
     1e-4 x (its own magnitude + the 99th percentile of its group's nonzero
@@ -93,8 +93,9 @@ def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
         0.9, 0.7, W, H, device=cuda_device,
     )
     ti = api.tile_inputs(
-        *_scene(6, 6000, S, cuda_device), cam, config=api.RasterizeConfig(pair_capacity=1 << 19)
+        *_scene(6, 6000, S, cuda_device), cam, config=api.RasterizeConfig(pair_capacity=1 << 22)
     )
+    assert int(ti.bins.overflow) == 0
     kw = dict(S=S, grid_x=ti.grid_x, grid_y=ti.grid_y, W=W, H=H)
     fwd = tiles_fwd.rasterize_tiles_fwd(ti.payload, ti.bins.tile_start, ti.bins.tile_count, **kw)
     lay = out_layout(S)
@@ -340,3 +341,62 @@ def test_trace_autograd_launches_both_kernels(cuda_device):
     for g in grads:
         assert torch.isfinite(g).all()
     assert float(grads[2].abs().sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [False, True], ids=["list", "exact"])
+def test_trace_kernels_match_plain_on_partial_tile_bundles(cuda_device, exact):
+    """Rays of a 37x21 frame in the renderer's 16x16 tile-bundle order
+    (render/envgs.rays_to_bundles: the last bundle column and row are
+    partial, their missing rays replicate the frame's edge), as refreal's
+    1236x821 frames give them: the forward kernel bit for bit and the
+    backward per value against their plain versions."""
+    from materialrefgs_torch.render.envgs import rays_to_bundles
+
+    (_, _, means, scales, rots, opac, shs), _ = _trace_scene(6, cuda_device)
+    Hf, Wf = 21, 37
+    yy, xx = torch.meshgrid(torch.linspace(-0.9, 0.9, Hf, device=cuda_device),
+                            torch.linspace(-1.1, 1.1, Wf, device=cuda_device), indexing="ij")
+    o = torch.stack([xx, yy, torch.full_like(xx, -3.0)], -1)
+    d = torch.stack([0.03 * xx, 0.03 * yy, torch.ones_like(xx)], -1)
+    o, d = rays_to_bundles(o, Hf, Wf), rays_to_bundles(d, Hf, Wf)
+    assert o.shape[0] == 3 * 2 * 256  # 6 bundles, the last column and row partial
+    captured = {}
+    real = tracer_api.trace_bundles_fwd
+
+    def capture(*args, **kw):
+        captured["args"], captured["kw"] = args, kw
+        return real(*args, **kw)
+
+    tracer_api.trace_bundles_fwd = capture
+    try:
+        with torch.no_grad():
+            res = tracer_api.trace(o, d, means, scales, rots, opac, shs,
+                                   tracer_api.TracerConfig(pair_capacity=1 << 17, exact_order=exact), sh_degree=3)
+    finally:
+        tracer_api.trace_bundles_fwd = real
+    assert res["overflow"] == 0
+    payload, rays, start, count = captured["args"]
+    kw = {k: v for k, v in captured["kw"].items() if k != "residual"}
+    assert int(count.min()) > 0
+    out = trace_fwd.trace_bundles_fwd(payload, rays, start, count, **kw)
+    torch.cuda.synchronize()
+    ref = trace_fwd.trace_bundles_fwd_plain(payload, rays, start, count, **kw)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+    if exact:
+        active = torch.amax(out[..., tlay.OUT_NPROC], dim=1).to(torch.int32) * tlay.K_CHUNK
+    else:
+        active = torch.amax(out[..., tlay.OUT_NCONTRIB], dim=1).to(torch.int32)
+    cot = torch.zeros_like(out)
+    cot[..., :8] = torch.randn(out.shape[:2] + (8,), device=cuda_device,
+                               generator=torch.Generator(device=cuda_device).manual_seed(7 + exact))
+    args = (payload, rays, start, count, active, out, cot)
+    dp, dr = trace_bwd.trace_bundles_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    rp, rr = trace_bwd.trace_bundles_bwd_plain(*args, **kw)
+    dp, dr, rp, rr = (x.cpu().numpy() for x in (dp, dr, rp, rr))
+    nrow = 13 + 3 * 16
+    for lo, hi in ((0, 3), (3, 6), (6, 9), (9, 12), (12, 13), (13, nrow)):
+        assert _per_value_ok(dp[lo:hi], rp[lo:hi]) <= 1.0, (lo, hi)
+    for lo, hi in ((0, 3), (3, 6)):
+        assert _per_value_ok(dr[..., lo:hi], rr[..., lo:hi]) <= 1.0, (lo, hi)

@@ -429,7 +429,7 @@ def test_trainer_improves_psnr_with_densification():
         assert torch.isfinite(p).all(), name
 
 
-def test_trainer_escalates_overflow_and_refuses_later_slices():
+def test_trainer_escalates_overflow_and_refuses_later_slices(monkeypatch, tmp_path):
     cams, images, gt_means, rng = _synthetic_scene(n_cams=1)
     model = tgm.create_from_points(gt_means.astype(np.float32), rng.uniform(size=(64, 3)).astype(np.float32),
                                    capacity=128, device="cpu")
@@ -476,9 +476,12 @@ def test_trainer_escalates_overflow_and_refuses_later_slices():
     assert [m["iteration"] for m in log] == [1, 2, 3, 4] and [m["warp_on"] for m in log] == [0, 0, 0, 1]
     assert log[-1]["warp_near"] == -1 and log[-1]["stage"] == "surfel"  # the virtual camera
     assert all(np.isfinite(log[-1][k]) for k in ("loss", "loss_warp_bc", "loss_mono_normal", "loss_ref_score"))
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        ttr.Trainer(model, cams, images, dataclasses.replace(opt, use_perceptual_loss=True),
-                    tcfg.PipelineParams())
+    # The perceptual loss trains now (tests/test_torch_lpips.py); without
+    # weights the Trainer turns it off and records that.
+    monkeypatch.setenv("MATERIALREFGS_LPIPS_WEIGHTS", str(tmp_path / "absent.npz"))
+    lp = ttr.Trainer(model, cams, images, dataclasses.replace(opt, use_perceptual_loss=True),
+                     tcfg.PipelineParams())
+    assert lp.lpips_disabled and not lp.opt.use_perceptual_loss and lp.lpips_weights is None
     vol = dataclasses.replace(opt, initial=0, volume_render_until_iter=5)
     with pytest.raises(NotImplementedError, match="volume"):
         ttr.Trainer(model, cams, images, vol, tcfg.PipelineParams(), envmap_res=16).train(1)
