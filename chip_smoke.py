@@ -118,11 +118,27 @@ Phases (any failure exits non-zero before the result lines are printed):
      non-zero once, no step applied truncated, no lpips_disabled, the train
      PSNR up; (c) all four kernels at a surfel2 step's inputs at 1236x821
      against their plain versions (the forward kernels bit for bit), with
-     times and bounds; (d) scripts/eval_torch.py serves the 3 test views.
+     times and bounds; (d) scripts/eval_torch.py serves the 3 test views;
+ 17. the other indirect-light flavors and the material outputs at full width
+     (phase 7's scene and iteration-50 PLY): (a) scripts/train_torch.py
+     --indirect_type raytracing_residual, 15 `surfel2` steps from the onset
+     at 200 (no env-GS model, the mesh extracted at the onset, every pixel's
+     reflected ray traced through it and shaded one bounce) with a
+     checkpoint and a test render at the end, counts zeroed just before and
+     read just after, s/step, one more step profiled on view 0 (busy share,
+     the rasterizer kernels' and the mesh tracer's device time inside the
+     step), the mesh tracer alone on view 0, peak memory, the onset TSDF,
+     triangles before and after decimation; (b) scripts/train_torch.py
+     --use_asg, 10 `surfel` steps, and the lobes' gradient through the
+     rasterized indirect map; (c) scripts/eval_torch.py --relight on phase 4's model
+     under a 512x256 RGBE sky the script writes (run-length and flat rows);
+     (d) --export_material_mesh on (a)'s run; (e) 5 vertex-albedo refinement
+     steps on view 0's 640k surface samples.
 
 The second-to-last line is the kernels' JSON record (launches from phase 16's
-run (b), times and bounds from (c)); the last line is {"ok": true, "device":
-{...}}. The script imports nothing of JAX.
+run (b), plus for the rasterizer phase 17's runs (a) and (b); times and bounds
+from phase 16 (c)); the last line is {"ok": true, "device": {...}}. The script
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -218,6 +234,13 @@ REAL_PHOTO_PAIRS = 1 << 25  # the photos' render: ~25x the pairs of an 800x800 v
 # this much.
 REAL_DEFERRED_FROM = 31
 REAL_PSNR_GAIN = 1.0
+# Phase 17: the raytracing_residual flavor's steps from the surfel2 onset,
+# the ASG flavor's `surfel` steps, the relight sky's size and the
+# vertex-albedo refinement's steps.
+RES_STEPS = 15
+ASG_STEPS = 10
+SKY_H, SKY_W = 256, 512
+ALBEDO_STEPS = 5
 # Tolerances per output group (the JAX package's tests/test_rasterize_pallas.py).
 TOLS = {
     "color": 2e-4, "feature": 2e-4, "normal": 2e-4, "M1": 2e-4, "M2": 2e-4,
@@ -1074,6 +1097,304 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
           f"LPIPS fwd {f_ms:.2f} ms, fwd+bwd {fb_ms:.2f} ms; busy {100 * busy / prof_ms:.1f} %; peak {peak:.2f} GiB; "
           f"mining {mine_s:.2f} s; TSDF {mesh_s:.1f} s; serve {ev['fps']:.2f} views/s")
     return dict(launches=launches, raster=raster, trace=trace)
+
+
+def sky_latlong(np, H, W, seed=0):
+    """An HDR sky in linear radiance: a gradient from the horizon up, a sun
+    of radiance 40 (past the 255 clip of no channel, but far past sRGB 1),
+    cloud noise, and a dark ground band of equal pixels (runs for the
+    run-length encoder)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W] / np.array([H, W], np.float32)[:, None, None]
+    rgb = np.stack([0.35 + 0.9 * yy, 0.45 + 0.7 * yy, 1.2 - 0.4 * yy], -1)
+    rgb = rgb * np.exp(rng.normal(size=(H, W, 1)) * 0.15)
+    rgb = np.where((((xx - 0.3) ** 2 + (yy - 0.22) ** 2) < 4e-4)[..., None], 40.0, rgb)
+    rgb[int(0.62 * H):] = [0.04, 0.035, 0.03]
+    return rgb.astype(np.float32)
+
+
+def mesh_shading_phase(np, torch, dev, smi_line, ctx):
+    """Phase 17: the raytracing_residual and ASG flavors and the material
+    outputs at full width. ctx: train_scene, tscene (phase 7's scene),
+    start_dir (a point_cloud/iteration_N directory of that scene's model),
+    serve_model, serve_scene (phase 4's run and scene), work_dir,
+    train_torch, eval_torch. Returns the rasterizer launches of (a) and (b) and the
+    numbers it printed."""
+    from materialrefgs_torch import config as cfg
+    from materialrefgs_torch.models import gaussian_io
+    from materialrefgs_torch.models.env_light import EnvLightMips
+    from materialrefgs_torch.ops import mesh_tracer as mtr
+    from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd
+    from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
+    from materialrefgs_torch.render.renderers import RenderOptions, mesh_indirect_maps, render_surfel
+    from materialrefgs_torch.render.shading import camera_rays_world
+    from materialrefgs_torch.train.mesh_material import make_vertex_albedo_step, read_material_mesh_ply
+    from materialrefgs_torch.utils import hdr, png
+    from materialrefgs_torch.utils.transforms import normalize
+
+    fns = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd, trace_fwd.trace_bundles_fwd,
+           trace_bwd.trace_bundles_bwd)
+    tscene, eval_torch = ctx["tscene"], ctx["eval_torch"]
+    cams = tscene.train_cameras
+    mp = cfg.preset_refnerf()[0]
+    white = torch.ones(3, device=dev)
+    t_phase = time.perf_counter()
+    out = {}
+
+    def run(argv):
+        print("  python scripts/train_torch.py " + " ".join(argv))
+        for fn in fns:
+            fn.launches = 0  # counts of this path's run only
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = ctx["train_torch"].main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in fns}
+        log = res["trainer"].metrics_log
+        walls = sorted(b["wall"] - a["wall"] for a, b in zip(log, log[1:]))
+        return res, launches, seconds, walls[len(walls) // 2], torch.cuda.max_memory_allocated() / 2**30
+
+    def argv(run_dir, start_iter, n, *flags):
+        # Phase 12's flags: the main model neither densifies, prunes nor
+        # resets past the start (--densify_until_iter), no re-extraction.
+        return ["-s", ctx["train_scene"], "-m", run_dir, "--schedule_scale", "0.01", "--start_ply",
+                ctx["start_dir"], "--start_iter", str(start_iter), "--iterations", str(start_iter + n),
+                "--capacity", str(1 << 19), "--pair_capacity", str(1 << 20), "--densify_until_iter",
+                str(start_iter), "--mesh_every", "1000", "--log_every", "1", *flags]
+
+    # (a) raytracing_residual through the train CLI, from the start PLY at
+    # the surfel2 onset (indirect_from_iter x 0.01).
+    a_run = os.path.join(ctx["work_dir"], "residual_run")
+    a_end = S2_START + RES_STEPS
+    print(f"  (a) raytracing_residual: {RES_STEPS} surfel2 steps ({S2_START + 1}-{a_end}) from "
+          f"{os.path.relpath(ctx['start_dir'], ctx['work_dir'])}, mesh extracted at the onset (no re-extraction), "
+          "the main model's densify and resets off past the onset (phase 12's cut)")
+    a_res, a_launches, a_s, a_step, a_peak = run(argv(
+        a_run, S2_START, RES_STEPS, "--indirect_type", "raytracing_residual",
+        "--checkpoint_iterations", str(a_end), "--test_iterations", str(a_end)))
+    tr = a_res["trainer"]
+    a_log = tr.metrics_log
+    onset_it, n_full, onset_s = tr.mesh_log[0]
+    n_traced = int(tr.mesh.valid.sum())
+    redone = sum(m["renders_redone"] for m in a_log)
+    whole = sum(m["overflow"] == 0 and m["mesh_cull_dropped"] == 0 for m in a_log)
+    a_test = a_res["test"][a_end]
+    for m in a_log:
+        print(f"    it {m['iteration']:3d} {m['stage']:8s} loss {m['loss']:.5f} psnr {m['psnr']:.3f} n_alive "
+              f"{m['n_alive']} mesh cull dropped {m['mesh_cull_dropped']:.0f} renders redone {m['renders_redone']:.0f}")
+    check([m["iteration"] for m in a_log] == list(range(S2_START + 1, a_end + 1)), "(a) skipped iterations")
+    check(all(m["stage"] == "surfel2" for m in a_log), "(a): a step is not surfel2")
+    check(tr.state.env_gs is None, "(a): the residual flavor spawned an env-GS model")
+    check(cfg.load_config(a_run)[1].indirect_type == "raytracing_residual", "(a): cfg_args.json lost the flavor")
+    check(not os.path.exists(os.path.join(os.path.dirname(a_res["ply"]), "env_point_cloud.ply")),
+          "(a): an env PLY was saved")
+    check(os.path.exists(os.path.join(a_run, f"chkpnt{a_end}.pt")), "(a): no checkpoint saved")
+    check(math.isfinite(a_test["psnr"]) and a_test["overflow"] == 0, "(a): the test render failed")
+    check(all(math.isfinite(m["loss"]) for m in a_log), "(a): non-finite loss")
+    check(a_launches["rasterize_tiles_bwd"] == RES_STEPS and a_launches["rasterize_tiles_fwd"] >= RES_STEPS,
+          f"(a): rasterizer launches {a_launches} for {RES_STEPS} steps")
+    check(a_launches["trace_bundles_fwd"] == 0 == a_launches["trace_bundles_bwd"],
+          "(a): the residual flavor launched the env-GS tracer")
+    check(whole == RES_STEPS, "(a): a step was applied truncated")
+    for name, prm in tr.state.params().items():
+        check(bool(torch.isfinite(prm).all()), f"(a): non-finite parameter {name}")
+    # One more step under torch.profiler, pinned to view 0, with the mesh
+    # tracer (mesh_indirect_maps) inside a record_function range: the busy
+    # share, and the rasterizer kernels' and the tracer's device time in the
+    # step.
+    from materialrefgs_torch.render import renderers as rmod
+
+    it_p = a_end + 1
+    traced_fn = rmod.mesh_indirect_maps
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("mesh_indirect_maps"):
+            return traced_fn(*args, **kw)
+
+    tr._pick_view = lambda: 0
+    rmod.mesh_indirect_maps = ranged
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            met = tr._run_step(it_p, "surfel2")
+            float(met["loss"])
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        rmod.mesh_indirect_maps = traced_fn
+        del tr._pick_view
+    cuda_t = torch.autograd.DeviceType.CUDA
+    ka = prof.key_averages()
+    # The range may also show as a device-side annotation: not a kernel.
+    ev_ = [e for e in ka if e.device_type == cuda_t and e.key != "mesh_indirect_maps"]
+    busy = sum(e.self_device_time_total for e in ev_) / 1e3
+    raster_ms = {k: sum(e.self_device_time_total for e in ev_ if k in e.key) / 1e3
+                 for k in ("rasterize_fwd_kernel", "rasterize_bwd_kernel")}
+    # The kernels launched inside the range (the host-side event's children);
+    # the device-side annotation's span is printed beside it.
+    step_mesh_ms = sum(e.device_time_total for e in ka
+                       if e.key == "mesh_indirect_maps" and e.device_type != cuda_t) / 1e3
+    span_ms = sum(e.self_device_time_total for e in ka
+                  if e.key == "mesh_indirect_maps" and e.device_type == cuda_t) / 1e3
+    if step_mesh_ms == 0:
+        print("  [info] no kernels attributed to the mesh tracer's range: its device-side span stands in")
+        step_mesh_ms = span_ms
+    check(step_mesh_ms > 0, "(a): no device time under the mesh tracer's range in the profiled step")
+    # The mesh tracer alone, no_grad, on the same view.
+    rmips = tr._build_mips(tr.state.env1)
+    with torch.no_grad():
+        pkg = render_surfel(tr.state.model, cams[0], white, rmips, RenderOptions(raster=tr.raster_cfg), mesh=tr.mesh,
+                            mesh_cull_cap=tr.tracer_cfg.mesh_cull_cap)
+        alpha = pkg["rend_alpha"]
+        nmap = pkg["rend_normal"] / torch.clamp(alpha, min=1e-6)
+        mi_args = (tr.mesh, cams[0], nmap, pkg["surf_depth"], rmips, alpha)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as mprof:
+            maps = mesh_indirect_maps(*mi_args, cull_cap=tr.tracer_cfg.mesh_cull_cap)
+            torch.cuda.synchronize()
+    mesh_ms = sum(e.self_device_time_total for e in mprof.key_averages() if e.device_type == cuda_t) / 1e3
+    hit = (pkg["visibility"][..., 0] < 1) & (alpha[..., 0] > 0)
+    n_hit = int(hit.sum())
+    ind_hit = float(pkg["indirect_light"][hit].abs().mean()) if n_hit else 0.0
+    check(n_hit > 0 and ind_hit > 0, f"(a): no indirect light at the {n_hit} occluded pixels of view 0")
+    check(torch.equal(maps["visibility"], pkg["visibility"]), "(a): mesh_indirect_maps differs from the render's")
+    print(f"  (a) {len(a_log)} steps, the checkpoint and {len(a_test['per_view_psnr'])} test views in {a_s:.1f} s: "
+          f"host {a_step:.4f} s/step (median, synchronised); profiled step {it_p} (view 0): {prof_ms:.1f} ms, "
+          f"{busy:.1f} ms of device kernels -> busy {100 * busy / prof_ms:.1f} %, of which the mesh tracer "
+          f"(mesh_indirect_maps range) {step_mesh_ms:.1f} ms ({100 * step_mesh_ms / max(busy, 1e-9):.1f} %; the "
+          f"range's device-side span {span_ms:.1f} ms), rasterizer "
+          f"forward {raster_ms['rasterize_fwd_kernel']:.3f} ms, backward {raster_ms['rasterize_bwd_kernel']:.3f} ms; "
+          f"mesh tracer alone (no_grad, view 0) {mesh_ms:.1f} ms of device kernels; peak {a_peak:.2f} GiB; onset "
+          f"TSDF at {onset_it} {onset_s:.1f} s, {n_full} triangles -> {n_traced} traced; renders redone {redone} "
+          f"(mesh_cull_cap now {tr.tracer_cfg.mesh_cull_cap}); steps applied untruncated {whole}/{len(a_log)}; "
+          f"test psnr {a_test['psnr']:.3f} dB; view 0: {n_hit} occluded pixels, mean |indirect| {ind_hit:.4f}; "
+          f"launches {a_launches} ({smi_line})")
+    print("  top device kernels of the profiled step (ms, launches):")
+    for e in sorted(ev_, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f}  {e.count:5d}  {e.key[:90]}")
+    ply_a = a_res["ply"]
+    out.update(a_step=a_step, a_busy=100 * busy / prof_ms, a_mesh_ms=mesh_ms, a_step_mesh_ms=step_mesh_ms,
+               a_device_ms=busy, a_raster_ms=raster_ms, a_peak=a_peak, onset_s=onset_s, tris=(n_full, n_traced),
+               a_launches=a_launches)
+
+    # (b) ASG lobes through the train CLI: `surfel` steps from the same PLY
+    # (no densify, prune or reset: the reset at 60 and the 20-pixel prune,
+    # phase 15 (b)'s cut).
+    b_res, b_launches, b_s, b_step, _ = run(argv(os.path.join(ctx["work_dir"], "asg_run"), S2_FROM, ASG_STEPS,
+                                                 "--use_asg"))
+    btr = b_res["trainer"]
+    b_log = btr.metrics_log
+    check([m["stage"] for m in b_log] == ["surfel"] * ASG_STEPS, "(b): the steps are not `surfel`")
+    check(all(math.isfinite(m["loss"]) for m in b_log), "(b): non-finite loss")
+    check(b_launches["rasterize_tiles_bwd"] == ASG_STEPS, f"(b): rasterizer launches {b_launches}")
+    asg = btr.state.model.indirect_asg
+    check(bool(torch.isfinite(asg).all()), "(b): non-finite ASG lobes")
+    # In both packages' Trainer the rasterized indirect map reaches no loss
+    # term: the lobes' gradient there is zero.
+    trainer_g = float(btr.state.adam.mu["indirect_asg"].abs().max())
+    # Through the rasterizer's backward kernel, the indirect map moves them.
+    bmips = EnvLightMips.build(btr.state.env1, min_roughness=mp.envmap_min_roughness,
+                               max_roughness=mp.envmap_max_roughness)
+    g_pkg = render_surfel(btr.state.model, cams[0], white, bmips, RenderOptions(use_asg=True, raster=btr.raster_cfg))
+    loss = torch.mean(torch.abs(g_pkg["indirect_map"] - btr.images[0]))
+    (g_asg,) = torch.autograd.grad(loss, [btr.state.model.indirect_asg])
+    map_g = float(g_asg.abs().max())
+    check(bool(torch.isfinite(g_asg).all()) and map_g > 0,
+          "(b): the ASG lobes' gradient through the rasterized indirect map is zero or non-finite")
+    print(f"  (b) use_asg: {ASG_STEPS} surfel steps ({S2_FROM + 1}-{S2_FROM + ASG_STEPS}) in {b_s:.1f} s, host "
+          f"{b_step:.4f} s/step (median); max |d loss / d indirect_asg| in the Trainer's steps {trainer_g:.3e} "
+          f"(the indirect map is not shaded there, as in the JAX Trainer), through the rasterized indirect map "
+          f"(view 0) {map_g:.3e}, finite; launches {b_launches} ({smi_line})")
+    out.update(b_step=b_step, asg_grad=(trainer_g, map_g), b_launches=b_launches)
+    del btr, b_res, g_asg, g_pkg
+
+    # (c) Relight phase 4's model under an HDR sky (flat and run-length rows).
+    sky_path = os.path.join(ctx["work_dir"], "sky.hdr")
+    rgbe = hdr.float_to_rgbe(sky_latlong(np, SKY_H, SKY_W))
+    rgbe[rgbe[:, 0, 0] == 2, 0, 0] = 3  # no flat row may start like a run-length header
+    hdr.write_hdr_rgbe(sky_path, rgbe, rle=np.arange(SKY_H) < SKY_H // 2)
+    decoded = hdr.read_hdr(sky_path)
+    check(np.array_equal(hdr.read_hdr_rgbe(sky_path), rgbe) and np.array_equal(decoded, hdr.rgbe_to_float(rgbe)),
+          "(c): the RGBE decode differs from what was written")
+    rdir = os.path.join(ctx["serve_model"], f"eval_{ITERATION}", "test", "renders")
+    trained = [png.read_png(os.path.join(rdir, f"{i:05d}.png")).astype(np.float32) for i in range(N_VIEWS)]
+    for fn in fns:
+        fn.launches = 0
+    rel = eval_torch.main(["-m", ctx["serve_model"], "-s", ctx["serve_scene"], "--skip_train",
+                           "--relight", sky_path])["test"]
+    relit = [png.read_png(os.path.join(rdir, f"{i:05d}.png")).astype(np.float32) for i in range(N_VIEWS)]
+    diff = float(np.mean([np.abs(a - b).mean() for a, b in zip(relit, trained)])) / 255
+    check(tiles_fwd.rasterize_tiles_fwd.launches == N_VIEWS, "(c): the relit serve did not launch once a view")
+    check(rel["overflow"] == 0, "(c): a relit view overflowed")
+    check(math.isfinite(rel["psnr"]) and diff > 1e-3, f"(c): the relit renders differ by {diff:.4f} only")
+    print(f"  (c) --relight {SKY_W}x{SKY_H} RGBE sky ({SKY_H // 2} run-length rows, {SKY_H - SKY_H // 2} flat; "
+          f"{os.path.getsize(sky_path)} bytes; decode equals the written values): {rel['fps']:.2f} views/s over "
+          f"{N_VIEWS} views; mean |relit - trained-env render| {diff:.4f} (of 1); psnr against the trained-env "
+          f"ground truth {rel['psnr']:.3f} dB ({smi_line})")
+    out.update(relight_fps=rel["fps"], relight_diff=diff)
+
+    # (d) The material mesh of (a)'s run.
+    t0 = time.perf_counter()
+    res = eval_torch.main(["-m", a_run, "-s", ctx["train_scene"], "--skip_train", "--skip_test",
+                           "--export_material_mesh"])
+    d_s = time.perf_counter() - t0
+    mv, mf, ma = read_material_mesh_ply(res["material_mesh"])
+    from materialrefgs_torch.train.mesh_extract import read_mesh_ply
+
+    plys = sorted(os.listdir(os.path.join(a_run, "meshes")))
+    fv, ff = read_mesh_ply(os.path.join(a_run, "meshes", plys[-1]))
+    t0 = time.perf_counter()
+    attrs = mtr.bake_vertex_attrs(tr.state.model, fv)
+    bake_s = time.perf_counter() - t0
+    check(np.array_equal(mv, fv) and np.array_equal(mf, ff), "(d): the material mesh's geometry differs")
+    # What the CLI baked, from the model as the saved PLY holds it.
+    check(set(ma) == set(attrs), f"(d): the material mesh holds {sorted(ma)}")
+    for k, v in mtr.bake_vertex_attrs(gaussian_io.load_ply(ply_a, device=dev)[0], fv).items():
+        check(np.allclose(ma[k], v, rtol=0, atol=1e-6), f"(d): {k} did not read back")
+    print(f"  (d) --export_material_mesh on (a)'s run: {d_s:.2f} s for the CLI, bake_vertex_attrs {bake_s:.2f} s "
+          f"({len(fv)} vertices, {len(ff)} triangles, k=4 nearest of {int(tr.state.model.n_alive)} splats); "
+          f"read back equal ({smi_line})")
+    out.update(bake_s=bake_s, n_verts=len(fv))
+
+    # (e) Vertex-albedo refinement on (a)'s traced mesh with baked materials,
+    # at view 0's 640k surface samples.
+    tv = tr.mesh.vertices.cpu().numpy()
+    tf = tr.mesh.triangles[tr.mesh.valid].cpu().numpy()
+    emesh = mtr.build_mesh(tv, tf, mtr.bake_vertex_attrs(tr.state.model, tv), device=dev)
+    rays_d, rays_o = camera_rays_world(cams[0], unnormalized=True)
+    pos = (rays_o[None, None] + pkg["surf_depth"][..., None] * rays_d).reshape(-1, 3)
+    n_s = nmap.reshape(-1, 3)
+    v_s = (-normalize(rays_d)).reshape(-1, 3)
+    target = tr.images[0].reshape(-1, 3)
+    state, step = make_vertex_albedo_step(emesh, rmips, lr=1e-2)
+    e_ms, e_loss = [], []
+    for _ in range(ALBEDO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, lv = step(state, pos, n_s, v_s, target)
+        e_loss.append(float(lv))
+        torch.cuda.synchronize()
+        e_ms.append(1e3 * (time.perf_counter() - t0))
+    with torch.no_grad():
+        albedo = torch.sigmoid(state[0])
+        m_ = emesh.attrs["metallic"]
+        after = mtr.shade_one_bounce(dataclasses.replace(emesh, attrs=dict(emesh.attrs, albedo=albedo,
+                                                                             diffuse=(1 - m_) * albedo)),
+                                     rmips, pos, n_s, v_s)["indirect"]
+        loss_after = float(torch.mean(torch.abs(after - target)))
+    check(all(math.isfinite(x) for x in e_loss + [loss_after]), "(e): non-finite loss")
+    check(loss_after < e_loss[0], "(e): the refinement did not lower the loss")
+    print(f"  (e) make_vertex_albedo_step, {ALBEDO_STEPS} steps on {pos.shape[0]} samples of view 0 against "
+          f"{len(tf)} triangles ({len(tv)} vertices): ms per step {[round(x, 1) for x in e_ms]} (host, "
+          f"synchronised); loss {e_loss[0]:.5f} -> {loss_after:.5f} ({smi_line})")
+    out.update(e_ms=e_ms, e_loss=(e_loss[0], loss_after))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 17 took {out['seconds']:.1f} s")
+    return out
 
 
 def pow2_at_least(n):
@@ -2316,13 +2637,24 @@ def main() -> int:
     real = refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, eval_torch)
     rr_, rt_ = real["raster"], real["trace"]
 
+    # ----------------------------------------------------------------- 17 --
+    phase("17. mesh-shaded indirect, ASG and the material outputs at full width")
+    p17 = mesh_shading_phase(np, torch, dev, smi_line, {
+        "train_scene": train_scene, "tscene": tscene, "start_dir": start_dir, "serve_model": model_path,
+        "serve_scene": scene_path, "work_dir": work_dir, "eval_torch": eval_torch, "train_torch": train_torch,
+    })
+    # The rasterizer rows count the main paths' launches: refreal's run
+    # (phase 16 (b)) and phase 17's residual and ASG runs.
+    raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k]
+                       for k in ("rasterize_tiles_fwd", "rasterize_tiles_bwd")}
+
     record = {"kernels": [
         {
             "name": "rasterize_tiles_fwd",
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
-            "launches": real["launches"]["rasterize_tiles_fwd"],
+            "launches": raster_launches["rasterize_tiles_fwd"],
             "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"]),
             "ms": rr_["fwd"]["ms"],
             "plain_ms": rr_["fwd"]["plain_ms"],
@@ -2335,7 +2667,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
-            "launches": real["launches"]["rasterize_tiles_bwd"],
+            "launches": raster_launches["rasterize_tiles_bwd"],
             "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"]),
             "ms": rr_["bwd"]["ms"],
             "plain_ms": rr_["bwd"]["plain_ms"],
@@ -2374,7 +2706,8 @@ def main() -> int:
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
           + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a)) launches: {a_launches}; "
-          f"refreal path (phase 16 (b), the record's) launches: {real['launches']}")
+          f"refreal path (phase 16 (b)) launches: {real['launches']}; residual path (phase 17 (a)) launches: "
+          f"{p17['a_launches']}; ASG path (phase 17 (b)) launches: {p17['b_launches']}")
     print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (iii) "
           f"{raster_iii['fwd']['ms']:.4f} ms (bound {raster_iii['fwd']['bound']:.4f}, plain "
           f"{raster_iii['fwd']['plain_ms']:.1f}); bit-identical at both")

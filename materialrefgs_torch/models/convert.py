@@ -3,8 +3,9 @@
 The caller hands over plain numpy arrays (`np.asarray` of each leaf of a JAX
 `GaussianParams`, the `alive` mask, `active_sh_degree`, an
 `EnvLightParams.base`, and for a `TrainState` the model's densification
-statistics, both cubemaps and optax `ScaleByAdamState` mu/nu/count); this
-module imports nothing of the JAX package.
+statistics, both cubemaps and optax `ScaleByAdamState` mu/nu/count, and for a
+`MeshData` its fields and per-vertex attributes); this module imports nothing
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -99,3 +100,21 @@ def train_state_from_numpy(
         env_adam.count = int(env_gs["adam_count"])
         state.env_adam = env_adam
     return state
+
+
+def mesh_from_numpy(arrays: dict[str, np.ndarray], attrs: dict[str, np.ndarray] | None = None,
+                    device: str | torch.device | None = None):
+    """A JAX `MeshData` as the port's, field for field: `arrays` maps v0,
+    e1, e2, normal, valid, vertices, triangles, cluster_lo and cluster_hi to
+    their arrays (padding rows included), `attrs` the per-vertex attributes."""
+    from materialrefgs_torch.ops.mesh_tracer import MeshData
+
+    dev = resolve_device(device)
+    kinds = {"valid": torch.bool, "triangles": torch.int32}
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    fields = {k: t(arrays[k], kinds.get(k, torch.float32))
+              for k in ("v0", "e1", "e2", "normal", "valid", "vertices", "triangles", "cluster_lo", "cluster_hi")}
+    return MeshData(**fields, attrs={k: t(v) for k, v in (attrs or {}).items()})

@@ -13,6 +13,8 @@ from torch import nn
 
 from materialrefgs_torch import resolve_device
 from materialrefgs_torch.ops import cubemap as cm
+from materialrefgs_torch.utils.hdr import read_hdr
+from materialrefgs_torch.utils.transforms import inverse_sigmoid, linear_to_srgb
 
 
 class EnvLightParams(nn.Module):
@@ -77,3 +79,14 @@ class EnvLightMips:
             mip = cm.get_mip(r, len(self.specular), self.min_roughness, self.max_roughness)
             light = cm.sample_mip_chain(list(self.specular), dirs, mip)
         return torch.sigmoid(light)
+
+
+def load_envlight_from_hdr(
+    path: str, res: int = 128, scale: float = 1.0, device: str | torch.device | None = None
+) -> EnvLightParams:
+    """EnvLight.load (scene/light.py:46-70): an HDR latlong (Radiance RGBE,
+    utils/hdr.py) -> sRGB -> clipped -> logits -> a (6, res, res, 3)
+    cubemap on `device` (default: the card)."""
+    hdr = torch.as_tensor(read_hdr(path).clip(1e-4, 255.0), device=resolve_device(device))
+    img = torch.clamp(linear_to_srgb(hdr) * scale, 0.001, 1 - 0.001)
+    return EnvLightParams(cm.latlong_to_cubemap(inverse_sigmoid(img), res))

@@ -259,3 +259,30 @@ def cubemap_to_latlong(cubemap: torch.Tensor, H: int, W: int) -> torch.Tensor:
         dim=-1,
     )
     return sample_cubemap(cubemap, refl)
+
+
+def latlong_to_cubemap(latlong: torch.Tensor, res: int) -> torch.Tensor:
+    """(H, W, C) equirectangular -> (6, res, res, C) cubemap
+    (scene/light_utils.py:34-47), bilinear: the longitude wraps (dr.texture's
+    default boundary; a clamp would leave a seam at the +-pi meridian) and
+    the latitude clamps."""
+    H, W, _ = latlong.shape
+    v = face_dirs(res, device=latlong.device)  # (6, res, res, 3), unit
+    tu = torch.atan2(v[..., 0], -v[..., 2]) / (2 * np.pi) + 0.5
+    tv = torch.arccos(torch.clamp(v[..., 1], -1, 1)) / np.pi
+    x = tu * W - 0.5
+    y = tv * H - 0.5
+    x0f = torch.floor(x)
+    x0 = torch.remainder(x0f, W)
+    x1 = torch.remainder(x0f + 1, W)
+    y0 = torch.clamp(torch.floor(y), 0, H - 1)
+    y1 = torch.clamp(y0 + 1, 0, H - 1)
+    fx = torch.clamp(x - x0f, 0, 1)[..., None]
+    fy = torch.clamp(y - y0, 0, 1)[..., None]
+    x0, x1, y0, y1 = (a.long() for a in (x0, x1, y0, y1))
+    return (
+        latlong[y0, x0] * (1 - fx) * (1 - fy)
+        + latlong[y0, x1] * fx * (1 - fy)
+        + latlong[y1, x0] * (1 - fx) * fy
+        + latlong[y1, x1] * fx * fy
+    )

@@ -1,4 +1,4 @@
-"""Mesh ray tracer for specular visibility (materialrefgs_tpu/ops/mesh_tracer.py).
+"""Mesh ray tracer and one-bounce shading (materialrefgs_tpu/ops/mesh_tracer.py).
 
 Nearest hit of rays against a triangle soup, as a dense Moller-Trumbore
 reduction: no BVH. Triangles are Morton-ordered so consecutive CLUSTER rows
@@ -11,18 +11,29 @@ that order, which is the JAX package's tie-break.
 The JAX package maps a `lax.cond` over every ray block; here the active
 blocks (block_mask) are gathered and intersected in batches sized to a
 memory budget. Plain torch: the hot-spot question for a hand kernel is in
-ROADMAP.md. Baked vertex attributes, capacity padding for a trainer's
-rebuilds and the one-bounce shading (`secondary_color`, `shade_one_bounce`,
-`bake_vertex_attrs`) are not ported yet.
+ROADMAP.md. On top of the trace: per-vertex attributes (`MeshData.attrs`,
+`interpolate_attr`), the split-sum colour seen along secondary rays
+(`secondary_color`), the one-bounce indirect light of the
+`raytracing_residual` flavor (`shade_one_bounce`), and the bake of the
+gaussians' materials onto mesh vertices (`bake_vertex_attrs`, the material
+mesh). Gradients flow through the shading (to the env light and the vertex
+attributes), not through the hit search.
+
+Divergences of the JAX package from the reference, kept here:
+- raytracer.py:264-266 samples the FG LUT for the first secondary hit only;
+  the LUT is evaluated per ray.
+- Barycentric weights are the Moller-Trumbore (u, v) themselves.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from materialrefgs_torch import resolve_device
+from materialrefgs_torch.ops.brdf_lut import sample_fg_lut
+from materialrefgs_torch.utils.transforms import normalize, reflect
 
 TRI_CHUNK = 512
 RAY_BLOCK = 2048
@@ -49,6 +60,7 @@ class MeshData:
     triangles: torch.Tensor  # (T, 3) int32 vertex ids (clamped on padding)
     cluster_lo: torch.Tensor  # (NC, 3) cluster AABB mins (padding: +inf)
     cluster_hi: torch.Tensor  # (NC, 3) cluster AABB maxs (padding: -inf)
+    attrs: dict = field(default_factory=dict)  # name -> (V, C) per-vertex attributes
 
     @property
     def n_tris(self) -> int:
@@ -79,10 +91,17 @@ def _morton_order(centroids: np.ndarray) -> np.ndarray:
 def build_mesh(
     vertices: np.ndarray,
     triangles: np.ndarray,
+    attrs: dict | None = None,
     device: str | torch.device | None = None,
 ) -> MeshData:
     """Pack (V,3) vertices + (T,3) int triangles into a MeshData on `device`
-    (default: the card), padded to whole TRI_CHUNK and CLUSTER blocks."""
+    (default: the card), padded to whole TRI_CHUNK and CLUSTER blocks.
+
+    attrs maps name -> (V, C) per-vertex arrays (the reference's
+    load_from_ply_file prefixes: diffuse/roughness/albedo/metallic/normal,
+    normal in [0, 1]). The JAX package's pad_to / pad_verts_to (a capacity
+    that keeps its jitted step's shapes) have no use in the eager port:
+    padding rows never hit."""
     dev = resolve_device(device)
     vertices = np.asarray(vertices, np.float32)
     triangles = np.asarray(triangles, np.int32)
@@ -119,6 +138,7 @@ def build_mesh(
         v0=t(v0), e1=t(e1), e2=t(e2), normal=t(n), valid=t(valid, torch.bool),
         vertices=t(vertices), triangles=t(tri_pad, torch.int32),
         cluster_lo=t(lo), cluster_hi=t(hi),
+        attrs={k: t(np.asarray(v, np.float32)) for k, v in (attrs or {}).items()},
     )
 
 
@@ -306,4 +326,103 @@ def trace(
         "tri": torch.where(hit, tri, torch.full_like(tri, -1)).reshape(shape),
         "bary": torch.stack([u, v], -1).reshape(*shape, 2),
         "cull_dropped": cull_dropped,
+    }
+
+
+def interpolate_attr(mesh: MeshData, name: str, tri: torch.Tensor, bary: torch.Tensor) -> torch.Tensor:
+    """Barycentric vertex-attribute interpolation at hit points: tri (...,),
+    bary (..., 2) = (u, v), the weight of v0 is 1 - u - v (raytracer.py:176-199)."""
+    vals = mesh.attrs[name]  # (V, C)
+    ids = mesh.triangles[torch.clamp(tri, min=0).long()].long()  # (..., 3)
+    tv = vals[ids]  # (..., 3, C)
+    u, v = bary[..., 0:1], bary[..., 1:2]
+    w = torch.cat([1.0 - u - v, u, v], dim=-1)
+    return torch.sum(tv * w[..., None], dim=-2)
+
+
+def secondary_color(mesh: MeshData, envmap, hit: dict, rays_d: torch.Tensor) -> torch.Tensor:
+    """Colour seen along secondary rays (raytracer.py:208-273
+    secondary_indirect_color): a miss fetches the env map along the ray, a
+    hit shades the vertex materials there with the split sum. A mesh without
+    attributes shades with diffuse 0, metallic 0, roughness 1, albedo 0.5 and
+    the geometric normal."""
+    miss_color = envmap(normalize(rays_d), mode="pure_env")
+    tri, bary = hit["tri"], hit["bary"]
+
+    def attr_or(name, default):
+        if name in mesh.attrs:
+            return interpolate_attr(mesh, name, tri, bary)
+        return torch.tensor(default, dtype=torch.float32, device=tri.device).expand(*tri.shape, len(default))
+
+    diffuse = attr_or("diffuse", (0.0, 0.0, 0.0))
+    metallic = attr_or("metallic", (0.0,))
+    rough = attr_or("roughness", (1.0,))
+    albedo = attr_or("albedo", (0.5, 0.5, 0.5))
+    if "normal" in mesh.attrs:
+        nrm = interpolate_attr(mesh, "normal", tri, bary) * 2.0 - 1.0
+    else:
+        nrm = hit["normal"]
+
+    w_o = -normalize(rays_d)
+    rays_l = normalize(reflect(w_o, nrm))
+    NoV = torch.sum(w_o * nrm, dim=-1, keepdim=True)
+    fg = sample_fg_lut(NoV[..., 0], rough[..., 0])  # per ray (module doc)
+    direct = envmap(rays_l, roughness=rough)
+    spec_w = (0.04 * (1 - metallic) + albedo * metallic) * fg[..., 0:1] + fg[..., 1:2]
+    hit_color = (1 - metallic) * diffuse + spec_w * direct
+    return torch.where((tri >= 0)[..., None], hit_color, miss_color)
+
+
+def shade_one_bounce(
+    mesh: MeshData,
+    envmap,
+    surface_pos: torch.Tensor,  # (..., 3)
+    rays_n: torch.Tensor,  # (..., 3) surface normal
+    rays_v: torch.Tensor,  # (..., 3) unit view direction, pointing off the surface
+    cull_cap: int | None = None,
+    block_mask: torch.Tensor | None = None,  # see trace()
+) -> dict:
+    """One-bounce indirect light at surface points (raytracer.py:274-300
+    shade, refl_utils.py:120-150): reflect the view ray, nearest-hit the
+    mesh, and return the colour seen along the bounce with the visibility:
+    {indirect (..., 3), visibility (..., 1), depth (...,), cull_dropped}."""
+    incident = normalize(reflect(rays_v, rays_n))
+    hit = trace(mesh, surface_pos, incident, cull_cap=cull_cap, block_mask=block_mask)
+    indirect = secondary_color(mesh, envmap, hit, incident)
+    vis = (hit["depth"] >= T_FAR).to(torch.float32)[..., None]
+    return {"indirect": indirect, "visibility": vis, "depth": hit["depth"], "cull_dropped": hit["cull_dropped"]}
+
+
+def bake_vertex_attrs(model, vertices: np.ndarray, k: int = 4) -> dict:
+    """Bake the gaussians' materials onto mesh vertices by inverse-distance
+    weighting over the k nearest alive gaussians (the JAX package's stand-in
+    for the reference's attribute-baked PLY, raytracer.py:60-81). Returns the
+    build_mesh attrs (diffuse/roughness/albedo/metallic/normal, normal in
+    [0, 1]) as float32 numpy; the neighbour search is scipy's cKDTree on
+    float32 inputs, as in the JAX package, so ties resolve alike."""
+    from scipy.spatial import cKDTree
+
+    with torch.no_grad():
+        xyz = model.xyz.detach().cpu().numpy()
+        alive = model.alive.cpu().numpy()
+        sel = alive if alive.any() else np.ones_like(alive)
+        dist, idx = cKDTree(xyz[sel]).query(np.asarray(vertices, np.float32), k=k)
+        w = 1.0 / np.maximum(dist, 1e-8)
+        w = w / w.sum(-1, keepdims=True)  # (V, k)
+
+        def gather(t):
+            a = t.detach().cpu().numpy()[sel]
+            return np.einsum("vk,vkc->vc", w, a[idx]).astype(np.float32)
+
+        albedo = gather(torch.sigmoid(model.ori_color))
+        metallic = gather(torch.sigmoid(model.refl_strength))
+        rough = gather(torch.sigmoid(model.roughness))
+        normals = gather(model.get_world_normal())
+    nn = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-8)
+    return {
+        "diffuse": (1.0 - metallic) * albedo,
+        "albedo": albedo,
+        "metallic": metallic,
+        "roughness": rough,
+        "normal": nn * 0.5 + 0.5,
     }

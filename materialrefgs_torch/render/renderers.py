@@ -10,9 +10,11 @@ reconstructed from the composited plane-distance and normal maps:
 depth = dist / <n_view, K^-1 (u,v,1)>.
 
 The env-GS composite (`render_surfel2`) lives in render/envgs.py; its
-mesh-traced visibility is `mesh_visibility_map` below. Not ported yet: ASG
-indirect light (raises NotImplementedError), the mesh-traced indirect
-residual and render_volume.
+mesh-traced visibility is `mesh_visibility_map` below. The indirect light
+rasterized per gaussian is SH or, with use_asg, ASG lobes (utils/asg.py).
+Given a mesh (the raytracing_residual flavor), `render_surfel` takes its
+visibility and indirect light from `mesh_indirect_maps`, the mesh-traced
+one-bounce shading. Not ported yet: render_volume (the volume stage).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from materialrefgs_torch.models.gaussian_model import GaussianModel
 from materialrefgs_torch.ops.rasterize.api import RasterizeConfig, rasterize
 from materialrefgs_torch.render import shading
 from materialrefgs_torch.utils import sh as sh_utils
+from materialrefgs_torch.utils.asg import eval_asg_indirect
 from materialrefgs_torch.utils.point import depth_to_normal
 from materialrefgs_torch.utils.transforms import (
     flip_align_view,
@@ -62,13 +65,10 @@ def _local_distance(pc: GaussianModel, camera: Camera, normals: torch.Tensor):
 
 
 def _indirect_light(pc: GaussianModel, camera: Camera, opts: RenderOptions):
-    if opts.use_asg:
-        raise NotImplementedError(
-            "ASG indirect light (use_asg, utils/asg.py) is not ported yet; "
-            "refnerf has it off"
-        )
     normals, dir_pp = _gaussian_normals(pc, camera)
     refl = reflect(-dir_pp, normals)
+    if opts.use_asg:
+        return eval_asg_indirect(pc.indirect_asg, normals, refl), normals
     shs = pc.get_indirect().transpose(1, 2)  # (P, 3, K)
     indirect = relu0(sh_utils.eval_sh(pc.max_sh_degree, shs, normalize(refl)))
     return indirect, normals
@@ -155,10 +155,15 @@ def render_surfel(
     opts: RenderOptions = RenderOptions(),
     mean2d_offset: torch.Tensor | None = None,
     wo_render_img: bool = False,
+    mesh=None,  # ops.mesh_tracer.MeshData: the raytracing_residual branch
+    mesh_cull_cap: int | None = None,
 ) -> dict:
-    """Deferred-shading render (gaussian_renderer/__init__.py:225-520),
-    without traced visibility or indirect light (the surfel2 slice).
+    """Deferred-shading render (gaussian_renderer/__init__.py:225-520).
     mean2d_offset: see ops/rasterize/api.rasterize (densification stats).
+    Without `mesh` the env light is unoccluded. With `mesh` (the
+    raytracing_residual flavor) visibility and indirect light come from
+    mesh_indirect_maps (refl_utils.py:101-190) and the pre-cull's drops are
+    returned as "mesh_cull_dropped".
     wo_render_img: the geometry and material pass alone (envmap may be
     None): the regularization maps, the material maps, rend_distance and
     diffuse_map, without shading; what the warp losses read."""
@@ -204,8 +209,15 @@ def render_surfel(
     # Deferred shading with the world-space normal map divided by alpha
     # (render_surfel:424-427).
     normal_map = regs["rend_normal"] / torch.clamp(render_alpha, min=1e-6)
+    visibility = indirect_light = None
+    if mesh is not None:
+        maps = mesh_indirect_maps(mesh, camera, normal_map, regs["surf_depth"], envmap, render_alpha,
+                                  cull_cap=mesh_cull_cap)
+        visibility, indirect_light = maps["visibility"], maps["indirect"]
+        results["mesh_cull_dropped"] = maps["cull_dropped"]
     specular, extra = shading.specular_color_surfel(
         envmap, albedo_map, camera, normal_map, render_alpha, refl_map, rough_map,
+        visibility=visibility, indirect_light=indirect_light,
     )
 
     final = (1 - refl_map) * base_color + specular
@@ -230,6 +242,36 @@ def render_surfel(
     return results
 
 
+def _surface_bundles(camera: Camera, normal_map, surf_depth, render_alpha):
+    """What a mesh trace from the rasterized surface starts from, in 16x16
+    tile bundles and detached (the reference's tracer passes no gradient):
+    the unbiased-depth surface points, the normals and the view directions
+    w_o, and the mask of bundles with a pixel of render_alpha > 0 (None
+    without render_alpha: every bundle)."""
+    from materialrefgs_torch.render.envgs import bundle_alpha_mask, rays_to_bundles
+
+    if surf_depth.dim() == 2:
+        surf_depth = surf_depth[..., None]
+    H, W = camera.height, camera.width
+    rays_d, rays_o = shading.camera_rays_world(camera, unnormalized=True)
+    surf_points = rays_o[None, None, :] + surf_depth * rays_d
+    w_o = -normalize(rays_d)
+    mask_b = bundle_alpha_mask(render_alpha, H, W) if render_alpha is not None else None
+    return [rays_to_bundles(t.detach(), H, W) for t in (surf_points, normal_map, w_o)], mask_b
+
+
+def _surface_image(bundles, camera: Camera, render_alpha, empty_value: float):
+    """Bundled per-ray values back to an (H, W, C) image; pixels with
+    render_alpha <= 0 take empty_value (refl_utils.py:118-125 traces only
+    where render_alpha > 0)."""
+    from materialrefgs_torch.render.envgs import bundles_to_image
+
+    img = bundles_to_image(bundles, camera.height, camera.width)
+    if render_alpha is None:
+        return img
+    return torch.where(render_alpha <= 0.0, torch.full_like(img, empty_value), img)
+
+
 def mesh_visibility_map(
     mesh,  # ops.mesh_tracer.MeshData
     camera: Camera,
@@ -248,23 +290,45 @@ def mesh_visibility_map(
     also returns the trace's cull_dropped count (occluder clusters beyond
     cull_cap that were ignored; 0 = exact)."""
     from materialrefgs_torch.ops import mesh_tracer as mt
-    from materialrefgs_torch.render.envgs import bundle_alpha_mask, bundles_to_image, rays_to_bundles
 
-    if surf_depth.dim() == 2:
-        surf_depth = surf_depth[..., None]
-    rays_d, rays_o = shading.camera_rays_world(camera, unnormalized=True)
-    surf_points = rays_o[None, None, :] + surf_depth * rays_d
-    w_o = -normalize(rays_d)
-    refl_dir = normalize(reflect(w_o, normal_map))
-    H, W = camera.height, camera.width
-    ro_b = rays_to_bundles(surf_points.detach(), H, W)
-    rd_b = rays_to_bundles(refl_dir.detach(), H, W)
-    mask_b = bundle_alpha_mask(render_alpha, H, W) if render_alpha is not None else None
-    hit = mt.trace(mesh, ro_b, rd_b, cull_cap=cull_cap, block_mask=mask_b)
-    vis_b = (hit["depth"] >= mt.T_FAR).to(torch.float32)[:, None]
-    vis = bundles_to_image(vis_b, H, W)
-    if render_alpha is not None:
-        vis = torch.where(render_alpha <= 0.0, torch.ones_like(vis), vis)
+    (ro_b, n_b, wo_b), mask_b = _surface_bundles(camera, normal_map, surf_depth, render_alpha)
+    hit = mt.trace(mesh, ro_b, normalize(reflect(wo_b, n_b)), cull_cap=cull_cap, block_mask=mask_b)
+    vis = _surface_image((hit["depth"] >= mt.T_FAR).to(torch.float32)[:, None], camera, render_alpha, 1.0)
     if with_dropped:
         return vis, hit["cull_dropped"]
     return vis
+
+
+def mesh_indirect_maps(
+    mesh,  # ops.mesh_tracer.MeshData (the extracted TSDF mesh)
+    camera: Camera,
+    normal_map: torch.Tensor,  # (H, W, 3) world-space, alpha-divided
+    surf_depth: torch.Tensor,  # (H, W) or (H, W, 1) unbiased surface depth
+    envmap: EnvLightMips,
+    render_alpha: torch.Tensor | None = None,  # (H, W, 1) gate for empty pixels
+    cull_cap: int | None = None,
+) -> dict:
+    """Per-pixel mesh-traced visibility and one-bounce indirect light, the
+    reference's raytracing_residual shading (utils/refl_utils.py:101-190):
+    surface points from the rasterized unbiased depth, reflected rays traced
+    against the mesh, and the colour along each bounce
+    (ops/mesh_tracer.shade_one_bounce). No gradient reaches the surface
+    points, normals or view directions (the reference's tracer has none);
+    the env light's does, through the two env fetches.
+
+    Rays are traced in 16x16 tile bundles and bundles without a pixel of
+    render_alpha > 0 are skipped, as in mesh_visibility_map: every ray hits
+    what the JAX package's row-major blocks hit (the first minimum in
+    ascending triangle order either way); only the pre-cull's survivor
+    lists, and so cull_dropped, differ. Empty pixels are fully visible and
+    take no indirect light. Returns {"visibility" (H, W, 1), "indirect"
+    (H, W, 3), "cull_dropped"}."""
+    from materialrefgs_torch.ops import mesh_tracer as mt
+
+    (ro_b, n_b, wo_b), mask_b = _surface_bundles(camera, normal_map, surf_depth, render_alpha)
+    out = mt.shade_one_bounce(mesh, envmap, ro_b, n_b, wo_b, cull_cap=cull_cap, block_mask=mask_b)
+    return {
+        "visibility": _surface_image(out["visibility"], camera, render_alpha, 1.0),
+        "indirect": _surface_image(out["indirect"], camera, render_alpha, 0.0),
+        "cull_dropped": out["cull_dropped"],
+    }

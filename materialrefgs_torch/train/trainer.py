@@ -23,12 +23,21 @@ surfel2 onset the env-GS init, TSDF mesh extraction, the tracer-budget probe,
 env densify/prune/reset with the signal-counted grace, the env SH ladder and
 the extinction re-seed.
 
+With PipelineParams.indirect_type "raytracing_residual" (the reference's
+other INDIRECT_TYPE flavor) `surfel2` spawns no env-GS model: its step shades
+the indirect light by tracing every pixel's reflected ray through the
+extracted mesh (render_surfel(mesh=...), render/renderers.mesh_indirect_maps),
+and the mesh is extracted at the onset even without mesh visibility. With
+use_asg the per-gaussian indirect light is ASG lobes (utils/asg.py) instead of
+SH. With detect_anomaly each step counts the nonfinite values of the loss and
+of every gradient group, and the Trainer raises a FloatingPointError naming
+the groups.
+
 The port runs eagerly, so a step mutates the state in place where the JAX
 step returns a new one. With use_perceptual_loss the `surfel` and `surfel2`
 steps add the LPIPS term (train/lpips.py) past perceptual_loss_start_iter;
-without weights the Trainer degrades loudly, as the JAX Trainer does. What
-the later slices bring raises NotImplementedError naming the slice: the
-`volume` stage and the `raytracing_residual` indirect type.
+without weights the Trainer degrades loudly, as the JAX Trainer does. The
+`volume` stage raises NotImplementedError naming the volume slice of the port.
 """
 from __future__ import annotations
 
@@ -54,14 +63,11 @@ from materialrefgs_torch.train.stages import select_stage
 from materialrefgs_torch.utils.transforms import abs_, expon_lr
 
 STAGES = ("initial", "surfel", "surfel2")
+INDIRECT_TYPES = ("origin", "raytracing_residual")
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    where = {
-        "volume": "the volume slice",
-        "raytracing_residual": "the mesh-shading slice",
-    }[what]
-    return NotImplementedError(f"{what} training is not ported yet; it comes with {where} of the port")
+def _volume_slice() -> NotImplementedError:
+    return NotImplementedError("volume training is not ported yet; it comes with the volume slice of the port")
 
 
 @dataclass
@@ -199,17 +205,17 @@ class TrainStep:
         tracer_cfg: TracerConfig = TracerConfig(),
         with_warp: bool = False,
         lpips_weights: dict | None = None,
+        detect_anomaly: bool = False,
     ):
         if stage not in STAGES:
-            raise _later_slice("volume")
-        if pipe.use_asg:
-            raise NotImplementedError(
-                "ASG indirect light (use_asg, utils/asg.py) is not ported yet; "
-                "refnerf has it off"
-            )
-        if stage == "surfel2" and pipe.indirect_type != "origin":
-            raise _later_slice("raytracing_residual")
+            raise _volume_slice()
+        if pipe.indirect_type not in INDIRECT_TYPES:
+            raise ValueError(f"indirect_type {pipe.indirect_type!r} is not one of {INDIRECT_TYPES}")
         self.stage = stage
+        # raytracing_residual: no env-GS model; the mesh-traced one-bounce
+        # shading is the indirect term (trainer.py:215-222).
+        self.residual = stage == "surfel2" and pipe.indirect_type == "raytracing_residual"
+        self.detect_anomaly = detect_anomaly
         self.with_warp = with_warp and stage in ("surfel", "surfel2")
         self.tracer_cfg = tracer_cfg
         # The perceptual loss applies to the deferred stages (trainer.py:252).
@@ -254,6 +260,10 @@ class TrainStep:
             state.env1, n_samples=self.envmap_n_samples,
             min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
         )
+        if self.residual:
+            pkg = render_surfel(model, camera, extra["bg"], mips, self.ropts, offset, mesh=mesh,
+                                mesh_cull_cap=self.tracer_cfg.mesh_cull_cap)
+            return pkg, offset
         if self.stage == "surfel2":
             if state.env_gs is None:
                 raise ValueError("the surfel2 step needs the env-GS model (TrainState.init_env_gs)")
@@ -357,11 +367,12 @@ class TrainStep:
         params = state.params()
         names = list(params)
         leaves = [params[k] for k in names]
-        env_params = state.env_params() if self.stage == "surfel2" else {}
+        env_params = state.env_params() if self.stage == "surfel2" and not self.residual else {}
         env_names = list(env_params)
         leaves += [env_params[k] for k in env_names]
         grads = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
         goff = grads[-1] if grads[-1] is not None else torch.zeros_like(offset)
+        anomaly = self._nonfinite_counts(loss, names, env_names, grads) if self.detect_anomaly else {}
         lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
         state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
         gm.add_densification_stats(
@@ -373,9 +384,14 @@ class TrainStep:
         metrics = {k: v.detach() for k, v in tb.items()}
         metrics["loss"] = loss.detach()
         metrics["overflow"] = pkg["overflow"]
+        metrics.update(anomaly)
         if self.with_warp:
             metrics["nearest_overflow"] = pkg["nearest_pkg"]["overflow"]
-        if self.stage == "surfel2":
+        if self.residual:
+            metrics["tracer_overflow"] = 0
+            metrics["tracer_pairs"] = 0
+            metrics["mesh_cull_dropped"] = int(pkg.get("mesh_cull_dropped", 0))
+        elif self.stage == "surfel2":
             # The env-GS model's own Adam. Its learning rates read the step
             # after the increment (trainer.py:461), without the opacity-LR
             # toggle; freeze_geo scales xyz and scaling, not rotation
@@ -399,6 +415,32 @@ class TrainStep:
                     float(egrads[k].abs().max()) if egrads[k] is not None else 0.0 for k in keys)
         return metrics
 
+    @staticmethod
+    def _nonfinite_counts(loss, names, env_names, grads) -> dict:
+        """The --detect_anomaly record (trainer.py:486-500): per group, the
+        count of nonfinite entries and the largest magnitude, named as the
+        JAX package names them (loss, grad.screen_offset, grad.env1,
+        grad.env2, grad.env_gs, grad.param.<name>). A gradient the loss does
+        not reach counts as zeros."""
+        n = len(names)
+        groups = {"loss": [loss.detach()], "grad.screen_offset": [grads[-1]]}
+        for k, g in zip(names, grads[:n]):
+            groups[f"grad.{k}" if k in ("env1", "env2") else f"grad.param.{k}"] = [g]
+        if env_names:
+            groups["grad.env_gs"] = list(grads[n : n + len(env_names)])
+        zero = torch.zeros((), device=loss.device)
+        counts, maxes = [], []
+        for leaves in groups.values():
+            leaves = [g.detach() for g in leaves if g is not None] or [zero]
+            counts.append(sum((~torch.isfinite(g)).sum() for g in leaves))
+            maxes.append(torch.stack([g.abs().max() for g in leaves]).max())
+        counts, maxes = torch.stack(counts).tolist(), torch.stack(maxes).tolist()
+        out = {}
+        for name, c, m in zip(groups, counts, maxes):
+            out[f"nonfinite/{name}"] = int(c)
+            out[f"gradmax/{name}"] = float(m)
+        return out
+
 
 def make_train_step(
     stage: str,
@@ -412,12 +454,15 @@ def make_train_step(
     tracer_cfg: TracerConfig = TracerConfig(),
     with_warp: bool = False,
     lpips_weights: dict | None = None,
+    detect_anomaly: bool = False,
 ) -> TrainStep:
     """The step of `initial`, `surfel` or `surfel2`: step(state, camera, gt,
     extra, mesh=None) -> metrics (see TrainStep). lpips_weights
-    (train/lpips.load_weights) turns the perceptual term on."""
+    (train/lpips.load_weights) turns the perceptual term on; detect_anomaly
+    adds the nonfinite/ and gradmax/ counts of each gradient group."""
     return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
-                     env_min_roughness, env_max_roughness, tracer_cfg, with_warp, lpips_weights)
+                     env_min_roughness, env_max_roughness, tracer_cfg, with_warp, lpips_weights,
+                     detect_anomaly)
 
 
 class Trainer:
@@ -477,8 +522,11 @@ class Trainer:
         use_mesh_visibility: bool = True,  # mesh-traced specular occlusion
         virtual_cam_trans_noise: float = 1.5,  # ModelParams.multi_view_max_dis
         virtual_cam_deg_noise: float = 30.0,  # ModelParams.multi_view_max_angle
+        detect_anomaly: bool = False,  # reference --detect_anomaly
     ):
         self.pipe = pipe
+        self.detect_anomaly = detect_anomaly
+        self._last_cam_id = -1
         self.cameras = cameras
         dev = model.device
         # Load the LPIPS weights or degrade loudly (trainer.py:561-588): the
@@ -559,6 +607,7 @@ class Trainer:
                 tracer_cfg=self.tracer_cfg,
                 with_warp=warp_on,
                 lpips_weights=self.lpips_weights,
+                detect_anomaly=self.detect_anomaly,
             )
         return self._steps[key]
 
@@ -620,6 +669,7 @@ class Trainer:
 
     def _run_step(self, iteration: int, stage: str) -> dict:
         cam_id = self._pick_view()
+        self._last_cam_id = cam_id
         extra = self._build_extra(iteration, cam_id)
         cam = self.cameras[cam_id]
         warp_on, near_cam, near_gt, photo_w, near_id = self._select_warp(iteration, stage, cam_id)
@@ -668,9 +718,9 @@ class Trainer:
         for iteration in range(start_iter, start_iter + num_iters):
             stage = select_stage(iteration, opt)
             if stage not in STAGES:
-                raise _later_slice(stage)
+                raise _volume_slice()
             if iteration == opt.volume_render_until_iter + 1 and opt.volume_render_until_iter > opt.init_until_iter:
-                raise _later_slice("volume")  # the volume -> surfel material re-init
+                raise _volume_slice()  # the volume -> surfel material re-init
             if stage == "surfel2":
                 self._surfel2_onset(iteration)
 
@@ -679,8 +729,17 @@ class Trainer:
                 self.state.model.oneup_sh_degree()
 
             metrics = self._run_step(iteration, stage)
+            if self.detect_anomaly:
+                # Debug mode (trainer.py:896-911): a report naming each
+                # nonfinite gradient group.
+                bad = {k.removeprefix("nonfinite/"): int(v) for k, v in metrics.items()
+                       if k.startswith("nonfinite/") and v > 0}
+                if bad:
+                    raise FloatingPointError(
+                        f"anomaly at iteration {iteration} (stage {stage}, cam {self._last_cam_id}): nonfinite "
+                        "values in " + ", ".join(f"{k} ({v} entries)" for k, v in sorted(bad.items())))
             st = self.state
-            if stage == "surfel2":
+            if stage == "surfel2" and st.env_gs is not None:
                 if metrics["tracer_pairs"] > 0:
                     self._env_signal_steps += 1
                 if int(st.env_gs.n_alive) == 0:
@@ -715,11 +774,10 @@ class Trainer:
     def _surfel2_onset(self, iteration: int):
         """At the first surfel2 iteration: the env-GS model, the mesh, and the
         tracer budget sized from a demand probe (trainer.py:840-870)."""
-        if self.state.env_gs is None:
-            if self.pipe.indirect_type != "origin":
-                raise _later_slice("raytracing_residual")
+        residual = self.pipe.indirect_type == "raytracing_residual"
+        if self.state.env_gs is None and not residual:
             self.state.init_env_gs()
-        if self.mesh is None and self.use_mesh_visibility:
+        if self.mesh is None and (self.use_mesh_visibility or residual):
             self._extract_mesh(iteration)
         if not self._tracer_presized:
             self._tracer_presized = True
@@ -784,7 +842,10 @@ class Trainer:
         from the Trainer's rng and size pair_capacity to fit it (x1.5,
         doubling from min(capacity, 1<<16) up to the ceiling), keeping the
         CLI's cluster:pair ratio (>> 7). The redo in _run_step stays the
-        safety net (trainer.py:1003-1088)."""
+        safety net (trainer.py:1003-1088). Without an env-GS model (the
+        raytracing_residual flavor) nothing is traced and nothing is probed."""
+        if self.state.env_gs is None:
+            return
         cfg = self.tracer_cfg
         probe_cfg = dataclasses.replace(cfg, cluster_pair_capacity=max(cfg.cluster_pair_capacity, 1 << 16))
         mips = self._build_mips(self.state.env1)
@@ -964,7 +1025,7 @@ class Trainer:
             outside = self._outside_msk()
             gm.reset_opacity1(st.model, exclusive_msk=outside)
             if iteration > opt.volume_render_until_iter > opt.init_until_iter:
-                raise _later_slice("volume")  # dist_color after a volume stage
+                raise _volume_slice()  # dist_color after a volume stage
             gm.reset_scale(st.model, exclusive_msk=outside)
             st.adam.zero_param("opacity")
             st.adam.zero_param("scaling")
@@ -984,8 +1045,10 @@ class Trainer:
     def _extract_mesh(self, iteration: int):
         """TSDF mesh extraction over every train view (trainer.py:1375-1446):
         write meshes/test_{iteration:06d}.ply when mesh_dir is set, and with
-        mesh visibility rebuild the traced mesh, decimated to
-        MESH_TRI_CAPACITY triangles."""
+        mesh visibility or the raytracing_residual flavor rebuild the traced
+        mesh, decimated to MESH_TRI_CAPACITY triangles. The JAX Trainer pads
+        it to a capacity for its jitted step's shapes; the eager step needs
+        no padding, and padding rows never hit."""
         from materialrefgs_torch.ops import mesh_tracer as mt
         from materialrefgs_torch.train import mesh_extract as me
 
@@ -1002,7 +1065,7 @@ class Trainer:
         if self.mesh_dir:
             me.write_mesh_ply(f"{self.mesh_dir}/test_{iteration:06d}.ply", verts, faces)
         n_full = len(faces)
-        if self.use_mesh_visibility:
+        if self.use_mesh_visibility or self.pipe.indirect_type == "raytracing_residual":
             if len(faces) > self.MESH_TRI_CAPACITY:
                 verts, faces = me.decimate_vertex_clustering(verts, faces, self.MESH_TRI_CAPACITY)
             self.mesh = mt.build_mesh(verts, faces, device=self.state.model.device)

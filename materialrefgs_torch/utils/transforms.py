@@ -115,3 +115,24 @@ def reflect(viewdir: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     """r = 2(n.v)n - v for v pointing away from the surface."""
     dotp = torch.sum(viewdir * normal, dim=-1, keepdim=True)
     return 2 * dotp * normal - viewdir
+
+
+def rotation_between_z(vec: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices aligning +z to `vec` (..., 3) -> (..., 3, 3)
+    (reference utils/graphics_utils.py:121), with its -I fallback for
+    vec ~ -z."""
+    v1 = -vec[..., 1]
+    v2 = vec[..., 0]
+    cos_p_1 = torch.clamp(vec[..., 2] + 1, min=1e-7)
+    v11, v22 = v1 * v1, v2 * v2
+    v12 = v1 * v2
+    R = torch.stack(
+        [
+            torch.stack([1 + (-v22) / cos_p_1, v12 / cos_p_1, v2], dim=-1),
+            torch.stack([v12 / cos_p_1, 1 + (-v11) / cos_p_1, -v1], dim=-1),
+            torch.stack([-v2, v1, 1 + (-v22 - v11) / cos_p_1], dim=-1),
+        ],
+        dim=-2,
+    )
+    neg_eye = -torch.eye(3, dtype=vec.dtype, device=vec.device)
+    return torch.where((vec[..., 2] + 1 > 0)[..., None, None], R, neg_eye.expand(R.shape))

@@ -14,7 +14,16 @@ A COLMAP scene (refreal) is served at the run's resolution, read from its
 cfg_args.json (`-r` at training). LPIPS is reported when the weights exist
 ($MATERIALREFGS_LPIPS_WEIGHTS, train/lpips.py), else None.
 
+--relight HDR serves the model under a new environment: a Radiance RGBE
+latlong (utils/hdr.py) turned into the cubemap in place of the trained env1
+(models/env_light.load_envlight_from_hdr). --export_material_mesh bakes the
+gaussians' materials onto the newest meshes/*.ply (ops/mesh_tracer.
+bake_vertex_attrs) and writes fuse_post_material.ply beside the run
+(train/mesh_material.py), also for a run without an env-GS cloud (the
+raytracing_residual flavor).
+
 Usage: python scripts/eval_torch.py -m output/helmet -s /data/refnerf/helmet
+       python scripts/eval_torch.py -m output/helmet -s /data/refnerf/helmet --relight sky.hdr
 """
 import argparse
 import dataclasses
@@ -70,23 +79,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--skip_train", action="store_true")
     ap.add_argument("--skip_test", action="store_true")
     ap.add_argument("--relight", default=None, metavar="HDR",
-                    help="render under a new environment (not ported yet)")
+                    help="render under a new environment: a Radiance .hdr latlong")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to render (default: the CUDA card)")
     ap.add_argument("--export_material_mesh", action="store_true",
-                    help="write fuse_post_material.ply (not ported yet)")
+                    help="write fuse_post_material.ply: the newest extracted mesh with per-vertex "
+                         "rgb/normal/diffuse/albedo/metallic/roughness (mesh_utils.py:255)")
     args = ap.parse_args(argv)
-
-    if args.relight:
-        raise NotImplementedError(
-            "--relight (HDR env import) is not ported yet; it comes with the "
-            "eval/tooling slice of the port"
-        )
-    if args.export_material_mesh:
-        raise NotImplementedError(
-            "--export_material_mesh (bake_vertex_attrs, train/mesh_material.py) "
-            "is not ported yet; it comes with the mesh-shading slice of the port"
-        )
 
     import torch
 
@@ -94,7 +93,7 @@ def main(argv=None) -> dict:
     from materialrefgs_torch import resolve_device
     from materialrefgs_torch.evaluate import render_set, save_png, write_metrics
     from materialrefgs_torch.models import gaussian_io
-    from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams
+    from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams, load_envlight_from_hdr
     from materialrefgs_torch.models.scene import Scene
     from materialrefgs_torch.ops.cubemap import cubemap_to_latlong
     from materialrefgs_torch.ops import mesh_tracer
@@ -145,6 +144,9 @@ def main(argv=None) -> dict:
     model, env1, env2 = gaussian_io.load_ply(
         ply, max_sh_degree=model_params.sh_degree, device=device
     )
+    if args.relight:
+        env1 = load_envlight_from_hdr(args.relight, res=model_params.envmap_max_res, device=device)
+        print(f"Relighting with {args.relight}")
     env1 = env1 or EnvLightParams.create(model_params.envmap_max_res, device=device)
     with torch.no_grad():
         mips = EnvLightMips.build(
@@ -166,12 +168,23 @@ def main(argv=None) -> dict:
     # Mesh-traced specular visibility from the newest mesh the run dumped.
     mesh = None
     mesh_dir = os.path.join(args.model_path, "meshes")
-    if env_model is not None and os.path.isdir(mesh_dir):
-        plys = sorted(p for p in os.listdir(mesh_dir) if p.endswith(".ply"))
-        if plys:
-            verts, faces = read_mesh_ply(os.path.join(mesh_dir, plys[-1]))
-            mesh = mesh_tracer.build_mesh(verts, faces, device=device)
-            print(f"Mesh visibility: {plys[-1]} ({len(faces)} tris)")
+    plys = sorted(p for p in os.listdir(mesh_dir) if p.endswith(".ply")) if os.path.isdir(mesh_dir) else []
+    if args.export_material_mesh and not plys:
+        raise FileNotFoundError(f"--export_material_mesh: no extracted mesh under {mesh_dir}")
+    if plys and (env_model is not None or args.export_material_mesh):
+        verts, faces = read_mesh_ply(os.path.join(mesh_dir, plys[-1]))
+    if env_model is not None and plys:
+        mesh = mesh_tracer.build_mesh(verts, faces, device=device)
+        print(f"Mesh visibility: {plys[-1]} ({len(faces)} tris)")
+    results = {}
+    if args.export_material_mesh:
+        from materialrefgs_torch.train.mesh_material import write_material_mesh_ply
+
+        attrs = mesh_tracer.bake_vertex_attrs(model, verts)
+        out = os.path.join(args.model_path, "fuse_post_material.ply")
+        write_material_mesh_ply(out, verts, faces, attrs)
+        print(f"Material mesh: {out} ({len(verts)} verts, baked from {plys[-1]})")
+        results["material_mesh"] = out
 
     opts = RenderOptions(
         srgb=opt.srgb,
@@ -185,7 +198,6 @@ def main(argv=None) -> dict:
     tr_cfg = TracerConfig(exact_order=True, pair_capacity=int(extra_cfg.get("pair_capacity", 1 << 19)))
     bg = (1.0, 1.0, 1.0) if model_params.white_background else (0.0, 0.0, 0.0)
     out_dir = os.path.join(args.model_path, f"eval_{it}")
-    results = {}
     if not args.skip_test and scene.test_cameras:
         images = [scene.test_image(i) for i in range(len(scene.test_cameras))]
         test_names = [ci.image_name for ci in scene.info.test_cameras]

@@ -29,7 +29,13 @@ schedule_scale) against each view's neighbours (the scene's nearest-view
 graph) or virtual cameras (--use_virtul_cam). --metric3d_path reads
 camera-space normal priors (PNG, v/255*2-1) for the mono-normal loss;
 --ref_score_path reads reflection-score masks (PNG, last channel > 128) or,
-given `auto`, mines them at ref_score_start_iter. --dp raises
+given `auto`, mines them at ref_score_start_iter. The flags of
+PipelineParams pick the flavor: --use_asg (ASG indirect lobes) and
+--indirect_type raytracing_residual (mesh-traced one-bounce indirect light,
+no env-GS model). --detect_anomaly checks the loss and every gradient group
+for nonfinite values each step and stops with the groups named;
+--deadline_min N saves a checkpoint and the PLYs at the first save, test or
+checkpoint mark past N minutes and stops there. --dp raises
 NotImplementedError (the parallel slice of the port).
 """
 import argparse
@@ -144,6 +150,12 @@ def main(argv=None) -> dict:
                     help="dir of reflection-score PNGs (last channel > 128), or 'auto' to mine "
                          "them in-process at ref_score_start_iter")
     ap.add_argument("--dp", type=int, default=0)
+    ap.add_argument("--deadline_min", type=float, default=0,
+                    help="wall-clock budget in minutes: at the first mark past it, save a checkpoint, "
+                         "the PLYs and the log, and stop cleanly at that iteration boundary")
+    ap.add_argument("--detect_anomaly", action="store_true",
+                    help="check the loss and every gradient group for nonfinite values each step and "
+                         "stop with the offending groups named (reference train_refnerf.py:1832)")
     ap.add_argument("--seed", type=int, default=3407)
     ap.add_argument("--log_every", type=int, default=100)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -255,6 +267,7 @@ def main(argv=None) -> dict:
         use_mesh_visibility=not args.no_mesh_visibility,
         virtual_cam_trans_noise=model_params.multi_view_max_dis,
         virtual_cam_deg_noise=model_params.multi_view_max_angle,
+        detect_anomaly=args.detect_anomaly,
     )
     extra_cfg = {"preset": args.preset, "capacity": args.capacity, "seed": args.seed}
     if trainer.lpips_disabled:
@@ -307,9 +320,30 @@ def main(argv=None) -> dict:
             print(f"[resume] mining reflection scores (past {rs_iter}) ...")
             trainer.mine_ref_scores()
 
-    results = {"trainer": trainer, "test": {}, "ply": None}
+    def save_ply(iteration):
+        out = os.path.join(args.model_path, f"point_cloud/iteration_{iteration}/point_cloud.ply")
+        gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
+        if trainer.state.env_gs is not None:
+            gaussian_io.save_ply(trainer.state.env_gs, os.path.join(os.path.dirname(out), "env_point_cloud.ply"))
+        results["ply"] = out
+        return out
+
+    results = {"trainer": trainer, "test": {}, "ply": None, "deadline_hit": False}
     t0 = time.time()
     for target in sorted(marks):
+        if args.deadline_min and (time.time() - t0) / 60 > args.deadline_min:
+            # A clean stop at an iteration boundary (scripts/train.py:414-435):
+            # checkpoint, PLYs and the log of the iteration reached.
+            print(f"[deadline] {args.deadline_min:g} min budget exhausted at iteration {done}/{opt.iterations}; "
+                  "saving and exiting")
+            results["deadline_hit"] = True
+            save_checkpoint(trainer.state, done, args.model_path)
+            cfg.dump_config(args.model_path, model_params, pipe, opt,
+                            extra={**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
+            save_ply(done)
+            with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
+                json.dump(trainer.metrics_log, f)
+            break
         trainer.train(target - done, start_iter=done + 1, log_every=args.log_every)
         done = target
         if args.ref_score_path == "auto" and target == opt.ref_score_start_iter:
@@ -345,11 +379,7 @@ def main(argv=None) -> dict:
             # without dropping pairs.
             cfg.dump_config(args.model_path, model_params, pipe, opt,
                             extra={**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
-            out = os.path.join(args.model_path, f"point_cloud/iteration_{target}/point_cloud.ply")
-            gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
-            if trainer.state.env_gs is not None:
-                gaussian_io.save_ply(trainer.state.env_gs, os.path.join(os.path.dirname(out), "env_point_cloud.ply"))
-            results["ply"] = out
+            save_ply(target)
             last = trainer.metrics_log[-1] if trainer.metrics_log else {}
             print(f"[{target}] saved; psnr={last.get('psnr', float('nan')):.2f} "
                   f"n_alive={last.get('n_alive', 0)} wall={time.time() - t0:.0f}s")

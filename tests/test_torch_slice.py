@@ -244,16 +244,6 @@ def test_eval_colmap_scene_matches_jax(tmp_path, monkeypatch, same_texel_grid, p
     assert float(png.read_png(os.path.join(runs["torch"], "eval_7000", "test", "gt", "00000.png")).std()) > 10
 
 
-def _setup_env_cloud(root):
-    """An env-GS (surfel2) checkpoint is served now (tests/test_torch_envgs.py);
-    the material-mesh export beside it waits for the mesh-shading slice."""
-    d = root / "point_cloud" / "iteration_5"
-    d.mkdir(parents=True)
-    (d / "env_point_cloud.ply").write_bytes(b"")
-    (root / "meshes").mkdir()
-    return ["--export_material_mesh"]
-
-
 def _setup_volume_stage(root):
     import dataclasses
 
@@ -268,15 +258,14 @@ def _setup_volume_stage(root):
 @pytest.mark.parametrize(
     "setup,match",
     [
-        (lambda root: ["--relight", "x.hdr"], "relight"),
-        (lambda root: ["--export_material_mesh"], "mesh"),
-        pytest.param(_setup_env_cloud, "mesh-shading", id="_setup_env_cloud-surfel2"),
         (_setup_volume_stage, "volume"),
     ],
 )
 def test_eval_refuses_what_the_slice_lacks(tmp_path, setup, match):
-    """Anything outside the serving slice raises NotImplementedError naming
-    the later slice; nothing else is rendered in its place."""
+    """A volume-stage checkpoint raises NotImplementedError naming the
+    volume slice; nothing else is rendered in its place. (--relight and
+    --export_material_mesh run now: tests/test_torch_relight.py,
+    tests/test_torch_mesh_material.py.)"""
     spec = importlib.util.spec_from_file_location("eval_torch", os.path.join(REPO, "scripts", "eval_torch.py"))
     eval_torch = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(eval_torch)
