@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero before the result lines are printed):
   1. the card's name and power limit;
   2. build every kernel of the serving and training paths from csrc/ with
-     nvcc (ptxas -v), one nvcc per source, all started together;
+     nvcc (ptxas -v) and the two host sources (the JPEG entropy decoder,
+     the COLMAP parser) with c++, one compiler per source, all started
+     together;
   3. hold each kernel against its plain torch version on the card: the
      rasterizer on a mid-size random scene at S=1, 9 and 10 (render_surfel2's
      width), the 64 densest tiles of the full-width view and the full-width
@@ -101,17 +103,21 @@ Phases (any failure exits non-zero before the result lines are printed):
      (--ref_score_path auto): each term non-zero at least once, the mining
      time and the masks' coverage;
  16. refreal, the Shiny Blender Real preset, end to end: (a) a COLMAP scene
-     written here (no Pillow): 24 PNG photos at 4946x3286 rendered from phase
+     written here (no Pillow): 24 JPEG photos (baseline 4:2:0, quality 90,
+     chip_smoke_jpeg.py's numpy writer) at 4946x3286 rendered from phase
      4's model over black on a ring at two elevations 15 deg apart, PINHOLE
      with fx 1 % shorter than fy and the principal point off centre, 100,000
-     sparse points near the surface coloured from a render; (b)
+     sparse points near the surface coloured from a render; each photo's
+     decode timed in its parts (host entropy decode, H2D, the JPEG kernel,
+     D2H) and the kernel held to its plain version on photo 0; (b)
      scripts/train_torch.py --preset refreal -r 4 (1236x821: partial tiles,
      an odd height) --schedule_scale 0.01 --iterations 170 --ref_score_path
      auto --mesh_every 1000, with LPIPS at RANDOM weights in the documented
      .npz ($MATERIALREFGS_LPIPS_WEIGHTS): initial 1-30, surfel with the warp
      from 71, masks mined at 100, surfel2 from 126 (unbounded TSDF), LPIPS
      from 161; counts zeroed just before, read just after (the record's
-     launches); the loader's time per image, s/step per stretch, the LPIPS
+     launches); the loader's time per photo (JPEG decode + LANCZOS), s/step
+     per stretch, the LPIPS
      network's time, mining and TSDF times, peak memory and one profiled
      surfel2 step with LPIPS (busy share, top kernels); every loss term
      finite, the distortion, warp, ref-score and perceptual terms each
@@ -133,12 +139,18 @@ Phases (any failure exits non-zero before the result lines are printed):
      rasterized indirect map; (c) scripts/eval_torch.py --relight on phase 4's model
      under a 512x256 RGBE sky the script writes (run-length and flat rows);
      (d) --export_material_mesh on (a)'s run; (e) 5 vertex-albedo refinement
-     steps on view 0's 640k surface samples.
+     steps on view 0's 640k surface samples;
+ 18. the JPEG decoder: (a) the writer's files in every sampling mode (4:4:4,
+     4:2:2, 4:2:0, 4:4:0, gray, RGB stored 4:4:4 and 4:2:0) at odd sizes, with and without a restart
+     interval, the kernel against its plain version on every byte; (b) a
+     textured 4946x3286 photo (band-limited noise, quality 95), its decode
+     in parts, the kernel's time against its bound and its plain version's;
+     (c) the native COLMAP parse against the pure one on phase 16's model.
 
 The second-to-last line is the kernels' JSON record (launches from phase 16's
 run (b), plus for the rasterizer phase 17's runs (a) and (b); times and bounds
-from phase 16 (c)); the last line is {"ok": true, "device": {...}}. The script
-imports nothing of JAX.
+from phase 16 (c), the JPEG kernel's at phase 16's photo 0); the last line is
+{"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -234,6 +246,17 @@ REAL_PHOTO_PAIRS = 1 << 25  # the photos' render: ~25x the pairs of an 800x800 v
 # this much.
 REAL_DEFERRED_FROM = 31
 REAL_PSNR_GAIN = 1.0
+# Phase 16's photos are baseline 4:2:0 JPEG at this quality (chip_smoke_jpeg,
+# the numpy writer); phase 18 (b)'s textured photo at JPEG_TEX_QUALITY.
+JPEG_QUALITY = 90
+JPEG_TEX_QUALITY = 95
+# Integer operations of the JPEG kernel: per 8x8 block the 64 dequantising
+# multiplies, two IDCT passes of 8 one-dimensional transforms (~60 multiplies,
+# adds and shifts each) and the 64 range limits (2 each); per output pixel
+# the upsampling (up to 4 samples, ~10 operations a component) and the
+# colour conversion (~10).
+JPEG_OPS_PER_BLOCK = 64 + 2 * 8 * 60 + 2 * 64
+JPEG_OPS_PER_PIXEL = 40
 # Phase 17: the raytracing_residual flavor's steps from the surfel2 onset,
 # the ASG flavor's `surfel` steps, the relight sky's size and the
 # vertex-albedo refinement's steps.
@@ -767,6 +790,60 @@ def raster_at(np, torch, what, cap):
     return nums
 
 
+def jpeg_split(torch, dev, path):
+    """One photo's decode in its four parts, each timed on its own: the host
+    entropy decode (markers and csrc/jpeg_entropy.cpp), the copy of the
+    coefficients to the card, the kernel (CUDA events, one launch with its
+    enqueue) and the copy of the pixels back. Returns the coefficients, the
+    device tensors, the pixels and the times in ms."""
+    from materialrefgs_torch.utils import jpeg
+
+    t0 = time.perf_counter()
+    co = jpeg.read_coefficients(path)
+    entropy = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coef = torch.from_numpy(co.coef).to(dev)
+    quant = torch.from_numpy(co.quant).to(dev)
+    torch.cuda.synchronize()
+    h2d = (time.perf_counter() - t0) * 1e3
+    res = {}
+    kernel = cuda_ms(torch, lambda: res.update(out=jpeg.idct_color(coef, quant, co.comps, co.height, co.width,
+                                                                     co.color)), 1)
+    t0 = time.perf_counter()
+    host = res["out"].cpu()
+    d2h = (time.perf_counter() - t0) * 1e3
+    return co, coef, quant, res["out"], host, dict(entropy=entropy, h2d=h2d, kernel=kernel, d2h=d2h)
+
+
+def jpeg_kernel_at(torch, co, coef, quant, out, what):
+    """The JPEG kernel against its plain version on one photo's coefficients
+    (every byte), its time (CUDA events over 10 launches), the plain
+    version's (timed in its comparison run) and its bound: bytes (the
+    coefficients and tables read once, the pixels written once) against
+    operations (JPEG_OPS_PER_BLOCK, JPEG_OPS_PER_PIXEL at the FP32 rate of
+    the CUDA cores, the published 32-bit rate of PEAK_FP32_FLOPS)."""
+    from materialrefgs_torch.utils import jpeg
+
+    args = (coef, quant, co.comps, co.height, co.width, co.color)
+    res = {}
+    plain_ms = cuda_ms(torch, lambda: res.update(ref=jpeg.idct_color_plain(*args)), 1)
+    err = int((out.int() - res.pop("ref").int()).abs().max())
+    check(err == 0, f"{what}: the JPEG kernel differs from its plain version (max abs diff {err})")
+    fn = lambda: jpeg.idct_color(*args)  # noqa: E731
+    fn()
+    ms = cuda_ms(torch, fn, 10)
+    n_bytes = coef.numel() * 2 + quant.numel() * 4 + out.numel()
+    ops = JPEG_OPS_PER_BLOCK * coef.shape[0] + JPEG_OPS_PER_PIXEL * co.height * co.width
+    tb, to = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    nums = dict(ms=ms, plain_ms=plain_ms, err=err, bound=max(tb, to), by="bytes" if tb >= to else "operations")
+    print(f"    JPEG kernel at {what} ({co.width}x{co.height}, {coef.shape[0]} blocks): bit-identical to its plain "
+          f"version; {ms:.4f} ms; bound {nums['bound']:.4f} ms (by {nums['by']}: {n_bytes / 1e6:.1f} MB -> "
+          f"{tb:.4f} ms, {ops / 1e9:.2f} G integer ops -> {to:.4f} ms), kernel at {100 * nums['bound'] / ms:.1f} % "
+          f"of it; plain version {plain_ms:.1f} ms")
+    return nums
+
+
 def write_colmap_bin(np, sparse, W, H, params, c2ws, names, xyz, rgb):
     """A COLMAP sparse model (cameras.bin, images.bin, points3D.bin) with
     one PINHOLE camera: c2ws are Blender (OpenGL-axis) camera-to-world
@@ -829,16 +906,21 @@ def lpips_flops(H, W):
 
 
 def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, eval_torch):
-    """Phase 16: refreal end to end. (a) a COLMAP scene of REAL_VIEWS PNG
-    photos at REAL_W x REAL_H rendered from phase 4's model over black
+    """Phase 16: refreal end to end. (a) a COLMAP scene of REAL_VIEWS JPEG
+    photos (baseline 4:2:0, quality JPEG_QUALITY) at REAL_W x REAL_H
+    rendered from phase 4's model over black
     (PINHOLE, fx != fy, principal point off centre; a ring at two
     elevations 15 deg apart), REAL_POINTS sparse points near its surface
     coloured from a render; (b) scripts/train_torch.py --preset refreal -r 4
     (1236x821) for REAL_ITERS iterations at x0.01 with LPIPS at random
     weights, ref-score masks mined at 100, the unbounded TSDF at the onset;
     (c) the four kernels at a surfel2 step's inputs against their plain
-    versions; (d) scripts/eval_torch.py serves the test views. Returns the
-    numbers for the kernels' record."""
+    versions; (d) scripts/eval_torch.py serves the test views. Each photo's
+    decode is timed in its parts, and the JPEG kernel held against its plain
+    version on photo 0. Returns the numbers for the kernels' record."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke_jpeg
     from materialrefgs_torch import config as cfg
     from materialrefgs_torch.data import readers
     from materialrefgs_torch.evaluate import render_set
@@ -850,16 +932,16 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
     from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
     from materialrefgs_torch.train import lpips as lpips_mod
-    from materialrefgs_torch.utils import png
+    from materialrefgs_torch.utils import jpeg
 
     kernels = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd, trace_fwd.trace_bundles_fwd,
-               trace_bwd.trace_bundles_bwd)
+               trace_bwd.trace_bundles_bwd, jpeg.idct_color)
     # (a) the scene. fy sets a 0.8 rad vertical field of view; fx is 1 %
     # shorter, the principal point a few pixels off centre.
     scene_dir = os.path.join(work_dir, "refreal_scene")
     fy = REAL_H / (2 * math.tan(0.4))
     params = (fy / 1.01, fy, REAL_W / 2 + 3.7, REAL_H / 2 - 2.9)
-    names = [f"frame_{i:05d}.png" for i in range(REAL_VIEWS)]
+    names = [f"frame_{i:05d}.jpg" for i in range(REAL_VIEWS)]
     c2ws = ring_views(np, REAL_VIEWS)
     rng = np.random.default_rng(16)
     t0 = time.perf_counter()
@@ -871,21 +953,29 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
                                      full.train_cameras + full.test_cameras), key=lambda t: t[0])]
     opts = RenderOptions(raster=api.RasterizeConfig(pair_capacity=REAL_PHOTO_PAIRS))
     black = torch.zeros(3, device=dev)
-    t_render = t_png = 0.0
+    t_render = 0.0
     view0 = None
     os.makedirs(os.path.join(scene_dir, "images"))
-    with torch.no_grad():
+
+    def encode(path, img):
+        t1 = time.perf_counter()
+        size = chip_smoke_jpeg.write_jpeg(path, img, quality=JPEG_QUALITY, sampling=(2, 2))
+        return time.perf_counter() - t1, size
+
+    # The encodes (numpy) overlap the next renders in 4 threads.
+    with torch.no_grad(), ThreadPoolExecutor(max_workers=4) as pool:
+        writes = []
         for i, cam in enumerate(cams):
             t1 = time.perf_counter()
             pkg = render_surfel(model, cam, black, mips, opts)
             check(int(pkg["overflow"]) == 0, f"refreal photo {i} overflows the pair capacity")
             img = (torch.clamp(pkg["render"], 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
             del pkg
-            t2 = time.perf_counter()
-            png.write_png(os.path.join(scene_dir, "images", names[i]), img, level=1)
-            t_render, t_png = t_render + t2 - t1, t_png + time.perf_counter() - t2
+            t_render += time.perf_counter() - t1
+            writes.append(pool.submit(encode, os.path.join(scene_dir, "images", names[i]), img))
             if i == 0:
                 view0 = img
+        writes = [w.result() for w in writes]
     # The sparse points: splat centres near the surface, coloured from view
     # 0's photo where they project into it (the nearest edge pixel elsewhere).
     sel = rng.choice(model.capacity, REAL_POINTS, replace=False)
@@ -897,9 +987,29 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     os.remove(os.path.join(sparse, "points3D.ply"))  # the reader's cache of the empty cloud above
     write_s = time.perf_counter() - t0
     on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(scene_dir) for f in fs)
-    print(f"  COLMAP scene: {REAL_VIEWS} PNG photos at {REAL_W}x{REAL_H} (PINHOLE fx {params[0]:.1f}, fy "
-          f"{params[1]:.1f}, cx {params[2]:.1f}, cy {params[3]:.1f}), {REAL_POINTS} points; written in {write_s:.1f} s "
-          f"(renders {t_render:.1f} s, PNG encoding {t_png:.1f} s); {on_disk / 1e6:.1f} MB on disk")
+    print(f"  COLMAP scene: {REAL_VIEWS} JPEG photos (baseline 4:2:0, quality {JPEG_QUALITY}) at {REAL_W}x{REAL_H} "
+          f"(PINHOLE fx {params[0]:.1f}, fy {params[1]:.1f}, cx {params[2]:.1f}, cy {params[3]:.1f}), {REAL_POINTS} "
+          f"points; written in {write_s:.1f} s (renders {t_render:.1f} s, JPEG encodes {sum(w[0] for w in writes):.1f} "
+          f"s in 4 threads); {on_disk / 1e6:.1f} MB on disk")
+    # Each photo's decode in its parts; the kernel against its plain version
+    # on photo 0 (the main path's shape: the record's time, bound and plain
+    # time).
+    splits = []
+    for i, name in enumerate(names):
+        co, coef, quant, out, host, t = jpeg_split(torch, dev, os.path.join(scene_dir, "images", name))
+        splits.append(t)
+        print(f"    photo {i:2d}: {writes[i][1] / 1e6:.2f} MB, written in {writes[i][0]:.2f} s; decode "
+              f"{sum(t.values()):.1f} ms = entropy {t['entropy']:.1f} + H2D {t['h2d']:.1f} + kernel {t['kernel']:.2f} "
+              f"+ D2H {t['d2h']:.1f} ms")
+        if i == 0:
+            diff = float((host.int() - torch.from_numpy(view0).int()).abs().float().mean())
+            check(tuple(host.shape) == (REAL_H, REAL_W, 3) and diff < 3.0,
+                  f"photo 0 decodes {diff:.2f} levels from its render on average")
+            jpeg_nums = jpeg_kernel_at(torch, co, coef, quant, out, "phase 16's photo 0")
+        del co, coef, quant, out, host
+    med = {k: float(np.median([t[k] for t in splits])) for k in splits[0]}
+    print(f"  photo decode, medians over {len(splits)}: entropy {med['entropy']:.1f} ms, H2D {med['h2d']:.1f} ms, "
+          f"kernel {med['kernel']:.2f} ms, D2H {med['d2h']:.1f} ms ({smi_line})")
 
     # (b) train refreal through the CLI, the loader timed inside it.
     out_dir = os.path.join(work_dir, "refreal_run")
@@ -908,7 +1018,7 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     print(f"  LPIPS weights: {wpath}, RANDOM (He-normal VGG16, uniform heads): no pretrained VGG16 ships with "
           "the repository")
     loader = {"decode": [], "resize": []}
-    real_read, real_resize = readers.png.read_png, readers.resample.resize
+    real_read, real_resize = readers.read_image, readers.resample.resize
 
     def timed(key, fn):
         def wrapper(*a, **kw):
@@ -926,12 +1036,12 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:
         fn.launches = 0  # counts of this path's run only
-    readers.png.read_png, readers.resample.resize = timed("decode", real_read), timed("resize", real_resize)
+    readers.read_image, readers.resample.resize = timed("decode", real_read), timed("resize", real_resize)
     t0 = time.perf_counter()
     try:
         res = train_torch.main(argv)
     finally:
-        readers.png.read_png, readers.resample.resize = real_read, real_resize
+        readers.read_image, readers.resample.resize = real_read, real_resize
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -941,9 +1051,10 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     H, W = tr.images[0].shape[:2]
     print(f"  {len(log)} steps in {run_s:.1f} s at {W}x{H}; peak device memory {peak:.2f} GiB; kernel launches "
           f"{launches}")
-    print(f"  loader per image ({len(loader['decode'])} decoded, {len(loader['resize'])} resized): PNG decode "
-          f"{1e3 * float(np.median(loader['decode'])):.0f} ms, LANCZOS /4 to {W}x{H} "
-          f"{1e3 * float(np.median(loader['resize'])):.0f} ms (medians)")
+    dec, rsz = float(np.median(loader["decode"])), float(np.median(loader["resize"]))
+    print(f"  loader per photo ({len(loader['decode'])} decoded, {len(loader['resize'])} resized): JPEG decode "
+          f"{1e3 * dec:.0f} ms (entropy on the host, the kernel on the card, both copies), LANCZOS /4 to {W}x{H} "
+          f"{1e3 * rsz:.0f} ms (medians): {dec + rsz:.3f} s a photo")
     check((W, H) == (REAL_W // 4, REAL_H // 4), f"trained at {W}x{H}")
     check([m["iteration"] for m in log] == list(range(1, REAL_ITERS + 1)), "refreal skipped iterations")
     opt = tr.opt
@@ -1096,7 +1207,8 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     print(f"refreal path (phase 16, {smi_line}): s/step {', '.join(f'{k} {v:.4f}' for k, v in stretch.items())}; "
           f"LPIPS fwd {f_ms:.2f} ms, fwd+bwd {fb_ms:.2f} ms; busy {100 * busy / prof_ms:.1f} %; peak {peak:.2f} GiB; "
           f"mining {mine_s:.2f} s; TSDF {mesh_s:.1f} s; serve {ev['fps']:.2f} views/s")
-    return dict(launches=launches, raster=raster, trace=trace)
+    return dict(launches=launches, raster=raster, trace=trace, jpeg=jpeg_nums, sparse=sparse, loader_s=dec + rsz,
+                decode_ms=med)
 
 
 def sky_latlong(np, H, W, seed=0):
@@ -1397,6 +1509,88 @@ def mesh_shading_phase(np, torch, dev, smi_line, ctx):
     return out
 
 
+def jpeg_phase(np, torch, dev, smi_line, work_dir, sparse):
+    """Phase 18, the decoder: (a) chip_smoke_jpeg's files in every sampling
+    mode at odd sizes, with and without a restart interval, the kernel
+    against its plain version (every byte); (b) one textured full-size
+    photo (band-limited noise at quality JPEG_TEX_QUALITY: the bit rate of a
+    real capture, which phase 16's renders over black are not), its decode
+    in parts, the kernel's time and bound; (c) the native COLMAP parse
+    against the pure one on phase 16's sparse model."""
+    import chip_smoke_jpeg
+    from materialrefgs_torch.data import colmap_loader as cl
+    from materialrefgs_torch.data import native_io
+    from materialrefgs_torch.utils import jpeg
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    d = os.path.join(work_dir, "jpeg")
+    os.makedirs(d, exist_ok=True)
+    n_cases = 0
+    modes = (("4:4:4", (1, 1), False), ("4:2:2", (2, 1), False), ("4:2:0", (2, 2), False), ("4:4:0", (1, 2), False),
+             ("gray", None, False), ("RGB 4:4:4", (1, 1), True), ("RGB 4:2:0", (2, 2), True))
+    for mode, sampling, rgb in modes:
+        for H, W in ((1, 1), (23, 37), (331, 517)):
+            for restart in (0, 7):
+                img = rng.integers(0, 256, size=(H, W, 3)).astype(np.uint8)
+                img = img[..., 0] if sampling is None else img
+                path = os.path.join(d, "case.jpg")
+                chip_smoke_jpeg.write_jpeg(path, img, quality=90, sampling=sampling or (1, 1),
+                                           restart_interval=restart, rgb=rgb)
+                co, coef, quant, out, host, _ = jpeg_split(torch, dev, path)
+                check(co.color == (jpeg.GRAY if sampling is None else jpeg.RGB if rgb else jpeg.YCC),
+                      f"JPEG {mode}: colour {co.color}")
+                ref = jpeg.idct_color_plain(coef, quant, co.comps, co.height, co.width, co.color)
+                err = int((out.int() - ref.int()).abs().max())
+                check(err == 0 and tuple(host.shape) == img.shape,
+                      f"JPEG kernel vs plain, {mode} {W}x{H} restart {restart}: max abs diff {err}")
+                n_cases += 1
+    print(f"  (a) {n_cases} files (4:4:4, 4:2:2, 4:2:0, 4:4:0, gray, RGB stored 4:4:4 and 4:2:0; 1x1, 37x23, 517x331; "
+          "restart interval 0 and 7): "
+          "the kernel equals its plain version on every byte (max abs diff 0)")
+
+    # (b) band-limited noise: N(0, 1) at a sixth of the size, bicubic up.
+    gen = torch.Generator(device=dev).manual_seed(18)
+    lo = torch.randn((1, 3, REAL_H // 6, REAL_W // 6), device=dev, generator=gen)
+    tex = torch.nn.functional.interpolate(lo, size=(REAL_H, REAL_W), mode="bicubic", align_corners=False)[0]
+    img = torch.clamp(128 + 60 * tex, 0, 255).to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+    path = os.path.join(d, "textured.jpg")
+    t0 = time.perf_counter()
+    size = chip_smoke_jpeg.write_jpeg(path, img, quality=JPEG_TEX_QUALITY, sampling=(2, 2))
+    write_s = time.perf_counter() - t0
+    co, coef, quant, out, host, t = jpeg_split(torch, dev, path)
+    diff = float((host.int() - torch.from_numpy(img).int()).abs().float().mean())
+    check(diff < 4.0, f"the textured photo decodes {diff:.2f} levels from its pixels on average")
+    print(f"  (b) textured photo {REAL_W}x{REAL_H}, 4:2:0, quality {JPEG_TEX_QUALITY}: {size / 1e6:.2f} MB "
+          f"({8 * size / (REAL_W * REAL_H):.2f} bits a pixel), written in {write_s:.1f} s; decode entropy "
+          f"{t['entropy']:.1f} ms, H2D {t['h2d']:.1f} ms, kernel {t['kernel']:.2f} ms (one launch), D2H "
+          f"{t['d2h']:.1f} ms; mean abs diff to the pixels {diff:.2f} ({smi_line})")
+    tex_nums = jpeg_kernel_at(torch, co, coef, quant, out, "the textured photo")
+    tex_nums.update(t)
+    del co, coef, quant, out, host
+
+    # (c) the native parse against the pure one.
+    img_bin, pts_bin = os.path.join(sparse, "images.bin"), os.path.join(sparse, "points3D.bin")
+    t0 = time.perf_counter()
+    ids, qvec, tvec, camid, names = native_io.read_images(img_bin)
+    xyz, rgb, err = native_io.read_points3d(pts_bin)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pure = cl.read_extrinsics_binary(img_bin)
+    pxyz, prgb, perr = cl.read_points3D_binary(pts_bin)
+    pure_ms = (time.perf_counter() - t0) * 1e3
+    same = (list(ids) == list(pure) and all(np.array_equal(qvec[k], pure[int(i)].qvec)
+                                           and np.array_equal(tvec[k], pure[int(i)].tvec)
+                                           and names[k] == pure[int(i)].name and camid[k] == pure[int(i)].camera_id
+                                           for k, i in enumerate(ids))
+            and np.array_equal(xyz, pxyz) and np.array_equal(rgb, prgb) and np.array_equal(err, perr))
+    check(same and len(xyz) == REAL_POINTS, "the native COLMAP parse differs from the pure parser")
+    print(f"  (c) COLMAP parse of phase 16's model ({len(ids)} images, {len(xyz)} points): native {native_ms:.1f} ms, "
+          f"pure {pure_ms:.1f} ms; equal arrays")
+    print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(cases=n_cases, tex=tex_nums, native_ms=native_ms, pure_ms=pure_ms)
+
+
 def pow2_at_least(n):
     return 1 << max(int(math.ceil(n)) - 1, 1).bit_length()
 
@@ -1446,13 +1640,19 @@ def main() -> int:
     print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ------------------------------------------------------------------ 2 --
-    phase("2. build kernels (nvcc, sm_90a)")
+    phase("2. build kernels (nvcc, sm_90a) and the host sources (c++)")
     from concurrent.futures import ThreadPoolExecutor
 
+    from materialrefgs_torch.data import native_io
+    from materialrefgs_torch.utils import jpeg
+
+    sources = (tiles_fwd.SOURCE, tiles_bwd.SOURCE, trace_fwd.SOURCE, trace_bwd.SOURCE, jpeg.SOURCE,
+               jpeg.ENTROPY_SOURCE, native_io.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(lambda m: nvcc.build(m.SOURCE), (tiles_fwd, tiles_bwd, trace_fwd, trace_bwd)))
-    print(f"4 kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        builds = list(pool.map(nvcc.build, sources))
+    print(f"5 kernels (nvcc) and 2 host sources (c++) built in {time.perf_counter() - t0:.1f} s (one compiler per "
+          "source, in parallel)")
     for lib_path, log in builds:
         print(f"{os.path.relpath(lib_path, REPO)}:")
         print(log.strip() or "(already built)")
@@ -2643,6 +2843,11 @@ def main() -> int:
         "train_scene": train_scene, "tscene": tscene, "start_dir": start_dir, "serve_model": model_path,
         "serve_scene": scene_path, "work_dir": work_dir, "eval_torch": eval_torch, "train_torch": train_torch,
     })
+    # ----------------------------------------------------------------- 18 --
+    phase("18. the JPEG decoder and the native COLMAP parse")
+    p18 = jpeg_phase(np, torch, dev, smi_line, work_dir, real["sparse"])
+    jp = real["jpeg"]
+
     # The rasterizer rows count the main paths' launches: refreal's run
     # (phase 16 (b)) and phase 17's residual and ASG runs.
     raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k]
@@ -2701,6 +2906,19 @@ def main() -> int:
             "bound_by": rt_["bwd"]["by"],
             "library_ms": None,
         },
+        {
+            "name": "idct_color",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/jpeg_idct.cu",
+            "replaces": "materialrefgs_tpu/data/readers.py:52",
+            "launches": real["launches"]["idct_color"],
+            "max_abs_err": max(jp["err"], p18["tex"]["err"]),
+            "ms": jp["ms"],
+            "plain_ms": jp["plain_ms"],
+            "bound_ms": jp["bound"],
+            "bound_by": jp["by"],
+            "library_ms": None,
+        },
     ]}
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
@@ -2723,6 +2941,12 @@ def main() -> int:
           f"tracer forward {rt_['fwd']['ms']:.4f} ms (bound {rt_['fwd']['bound']:.4f}, plain "
           f"{rt_['fwd']['plain_ms']:.1f}), "
           f"backward {rt_['bwd']['ms']:.4f} ms (bound {rt_['bwd']['bound']:.4f}, plain {rt_['bwd']['plain_ms']:.1f})")
+    print(f"JPEG kernel at phase 16's photo 0 ({REAL_W}x{REAL_H}, 4:2:0): {jp['ms']:.4f} ms (bound {jp['bound']:.4f} by "
+          f"{jp['by']}, plain {jp['plain_ms']:.1f}); at phase 18 (b)'s textured photo {p18['tex']['ms']:.4f} ms; photo "
+          f"decode medians (phase 16): entropy {real['decode_ms']['entropy']:.1f} ms, H2D {real['decode_ms']['h2d']:.1f} "
+          f"ms, kernel {real['decode_ms']['kernel']:.2f} ms, D2H {real['decode_ms']['d2h']:.1f} ms; loader "
+          f"{real['loader_s']:.3f} s a photo; COLMAP parse native {p18['native_ms']:.1f} "
+          f"ms, pure {p18['pure_ms']:.1f} ms")
     print(smi_line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

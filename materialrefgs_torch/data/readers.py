@@ -1,10 +1,10 @@
 """Dataset readers (reference scene/dataset_readers.py): Blender + COLMAP.
 
 Returns SceneInfo with CameraInfo lists; images are decoded lazily as float32
-(H, W, 3) channel-last arrays by the numpy PNG codec (utils/png.py), and
-downscaled as Pillow's LANCZOS does (utils/resample.py). Images must be PNG:
-the card machines have no Pillow, and the port's JPEG decoder is still to
-come (ROADMAP.md A13).
+(H, W, 3) channel-last arrays, PNG by the numpy codec (utils/png.py), JPEG by
+the port's decoder (utils/jpeg.py: host entropy decode, the rest on the
+card), and downscaled as Pillow's LANCZOS does (utils/resample.py). Like
+Pillow, the reader tells the format from the file's first bytes.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import numpy as np
 
 from materialrefgs_torch.cameras import focal2fov, fov2focal, world_to_view
 from materialrefgs_torch.data import colmap_loader as cl
-from materialrefgs_torch.utils import png, resample
+from materialrefgs_torch.data import native_io
+from materialrefgs_torch.utils import jpeg, png, resample
 from materialrefgs_torch.utils.ply import read_point_cloud_ply, write_point_cloud_ply
 
 
@@ -49,25 +50,41 @@ class SceneInfo(NamedTuple):
     ply_path: str
 
 
-def require_png(path: str) -> None:
-    """Raise NotImplementedError for an image the port cannot decode yet."""
+def _format(path: str) -> str:
     with open(path, "rb") as f:
         head = f.read(8)
-    if head != b"\x89PNG\r\n\x1a\n":
-        raise NotImplementedError(
-            f"{path} is not a PNG image: the port decodes PNG only, until its "
-            "JPEG decoder lands (ROADMAP.md A13, the JPEG decoder); convert the "
-            "images to PNG meanwhile"
-        )
+    if head == b"\x89PNG\r\n\x1a\n":
+        return "png"
+    if head[:2] == jpeg.SOI:
+        return "jpeg"
+    raise NotImplementedError(
+        f"{path} is neither a PNG nor a JPEG image: the port reads those two formats "
+        f"({jpeg.ROADMAP_ITEM}, the JPEG decoder)"
+    )
 
 
-def load_image(info: CameraInfo, resolution_scale: int = 1) -> np.ndarray:
+def read_image(path: str, device=None) -> np.ndarray:
+    """uint8 (H, W, C), C = 1 (gray), 3 or 4, as Pillow decodes the file:
+    PNG on the host, JPEG with its inverse DCT and colour conversion on
+    `device` (default: the card)."""
+    if _format(path) == "png":
+        return png.read_png(path)
+    arr = jpeg.decode_jpeg(path, device).cpu().numpy()
+    return arr[..., None] if arr.ndim == 2 else arr
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) from the file's header."""
+    return png.read_png_size(path) if _format(path) == "png" else jpeg.read_jpeg_size(path)
+
+
+def load_image(info: CameraInfo, resolution_scale: int = 1, device=None) -> np.ndarray:
     """(H, W, 3) float32 in [0,1]; alpha composited over the background.
+    The file decodes as read_image does (a JPEG partly on `device`);
     resolution_scale != 1 resizes the image in its own mode (RGBA
-    premultiplied) to (width // scale, height // scale) with Pillow's LANCZOS,
-    as the JAX package's Image.resize does."""
-    require_png(info.image_path)
-    arr = png.read_png(info.image_path)
+    premultiplied) to (width // scale, height // scale) with Pillow's
+    LANCZOS, as the JAX package's Image.resize does."""
+    arr = read_image(info.image_path, device)
     if resolution_scale != 1:
         size = (info.width // resolution_scale, info.height // resolution_scale)
         arr = resample.resize(arr, size, resample.LANCZOS)
@@ -108,7 +125,7 @@ def read_blender_scene(
             w2c = np.linalg.inv(c2w)
             R = np.transpose(w2c[:3, :3])
             T = w2c[:3, 3]
-            W, H = png.read_png_size(cam_name)
+            W, H = image_size(cam_name)
             fovy = focal2fov(fov2focal(fovx, W), H)
             infos.append(
                 CameraInfo(
@@ -148,20 +165,32 @@ def read_blender_scene(
     return SceneInfo(pcd, train, test, norm, ply_path)
 
 
+def _read_extrinsics_native(path: str) -> dict:
+    """images.bin through native_io, as colmap_loader's images without their
+    2D points (which nothing reads)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    ids, qvec, tvec, camid, names = native_io.read_images(path)
+    return {
+        int(i): cl.Image(int(i), q, t, int(c), n, np.zeros((0, 2)), np.zeros(0, np.int64))
+        for i, q, t, c, n in zip(ids, qvec, tvec, camid, names)
+    }
+
+
 def read_colmap_scene(
     path: str, images_dir: str = "images", eval_split: bool = False, llffhold: int = 8
 ) -> SceneInfo:
     """readColmapSceneInfo (dataset_readers.py:199-247): SIMPLE_PINHOLE and
     PINHOLE cameras with their intrinsics K, views sorted by name, every
     llffhold-th view held out for test, the sparse points cached as
-    points3D.ply beside them. The JAX package reads images.bin and
-    points3D.bin through an optional native parser first; the port reads
-    them with the pure parser that is its fallback (ROADMAP.md A14)."""
+    points3D.ply beside them. images.bin and points3D.bin are parsed by
+    native code (data/native_io.py), as the JAX package's native loader
+    does; text models by the pure parser."""
     sparse = os.path.join(path, "sparse", "0")
     if not os.path.isdir(sparse):
         sparse = os.path.join(path, "sparse")
     try:
-        extr = cl.read_extrinsics_binary(os.path.join(sparse, "images.bin"))
+        extr = _read_extrinsics_native(os.path.join(sparse, "images.bin"))
         intr = cl.read_intrinsics_binary(os.path.join(sparse, "cameras.bin"))
     except FileNotFoundError:
         extr = cl.read_extrinsics_text(os.path.join(sparse, "images.txt"))
@@ -206,7 +235,7 @@ def read_colmap_scene(
     bin_path = os.path.join(sparse, "points3D.bin")
     if not os.path.exists(ply_path):
         if os.path.exists(bin_path):
-            xyz, rgb, _ = cl.read_points3D_binary(bin_path)
+            xyz, rgb, _ = native_io.read_points3d(bin_path)
         else:
             xyz, rgb, _ = cl.read_points3D_text(os.path.join(sparse, "points3D.txt"))
         try:

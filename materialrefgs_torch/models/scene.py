@@ -73,6 +73,7 @@ class Scene:
     nearest_ids: list[list[int]]
     cameras_extent: float
     resolution_scale: int = 1
+    device: torch.device | None = None  # where a JPEG photo's decode runs
     _image_cache: dict = field(default_factory=dict)
 
     @staticmethod
@@ -106,18 +107,19 @@ class Scene:
             nearest_ids=graph,
             cameras_extent=info.nerf_normalization["radius"],
             resolution_scale=rs,
+            device=dev,
         )
 
     def train_image(self, idx: int) -> np.ndarray:
         if ("train", idx) not in self._image_cache:
             self._image_cache[("train", idx)] = load_image(
-                self.info.train_cameras[idx], self.resolution_scale
+                self.info.train_cameras[idx], self.resolution_scale, self.device
             )
         return self._image_cache[("train", idx)]
 
     def test_image(self, idx: int) -> np.ndarray:
         if ("test", idx) not in self._image_cache:
             self._image_cache[("test", idx)] = load_image(
-                self.info.test_cameras[idx], self.resolution_scale
+                self.info.test_cameras[idx], self.resolution_scale, self.device
             )
         return self._image_cache[("test", idx)]

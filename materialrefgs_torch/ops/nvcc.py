@@ -1,9 +1,10 @@
-"""Build the port's hand-written CUDA sources into shared libraries.
+"""Build the port's hand-written native sources into shared libraries.
 
-Each source under `csrc/` has a plain C entry point; `build(source)` compiles
-it with nvcc for sm_90a into BUILD_DIR (gitignored) once per source and flag
-hash, and `load(source)` opens the library with ctypes. Kernels are built on
-the machine with the card at first use, never when a module is imported.
+Each source under `csrc/` has a plain C entry point. `build(source)` compiles
+a CUDA source with nvcc for sm_90a and a host C++ source with the host
+compiler (`c++`, the one nvcc drives), each into BUILD_DIR
+(gitignored) once per source and flag hash; `load(source)` opens the library
+with ctypes. Sources are built at first use, never when a module is imported.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -38,12 +40,15 @@ def _nvcc() -> str:
     return found
 
 
-def build(source: Path) -> tuple[Path, str]:
-    """Compile `source` into BUILD_DIR (once per source/flags hash). Returns
-    (library path, compiler output); the output holds ptxas's
-    register/shared-memory report when this call compiled."""
+def host_compiler() -> str | None:
+    """The host C++ compiler ($CXX, else `c++` on PATH), or None."""
+    cxx = os.environ.get("CXX") or "c++"
+    return shutil.which(cxx)
+
+
+def _compile(source: Path, compiler: str, flags: tuple[str, ...]) -> tuple[Path, str]:
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if lib.exists():
         return lib, ""
@@ -51,18 +56,29 @@ def build(source: Path) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-            capture_output=True,
-            text=True,
-        )
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
+            name = os.path.basename(compiler)
+            raise RuntimeError(f"{name} failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib, proc.stdout + proc.stderr
+
+
+def build(source: Path) -> tuple[Path, str]:
+    """Compile a .cu or .cpp `source` into BUILD_DIR (once per source/flags
+    hash): .cu with nvcc, .cpp with the host compiler. Returns (library path,
+    compiler output); for a .cu source the output holds ptxas's
+    register/shared-memory report when this call compiled. Raises with the
+    compiler's output when it fails, or when no compiler is found."""
+    if source.suffix == ".cpp":
+        cxx = host_compiler()
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler found ($CXX or c++ on PATH) to build {source.name}")
+        return _compile(source, cxx, HOST_FLAGS)
+    return _compile(source, _nvcc(), NVCC_FLAGS)
 
 
 def load(source: Path) -> ctypes.CDLL:

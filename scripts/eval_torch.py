@@ -35,14 +35,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def load_gt_normals(source_path, image_names, hw):
+def load_gt_normals(source_path, image_names, hw, device=None):
     """GT normal maps for the test split, when the dataset ships them
     (Glossy Synthetic via nero2blender: `normal/{name}.png`; Shiny Blender:
     `test/{name}_normal.png`). Returns (normals, masks) or (None, None).
-    PNGs decode as n = 2*rgb - 1; the alpha channel (if any) is the
+    The files decode by content, as Pillow opens them (PNG, or JPEG partly
+    on `device`), as n = 2*rgb - 1; the alpha channel (if any) is the
     foreground mask. A map of another size than the renders is resized
     first, as Pillow's BILINEAR does (scripts/eval.py:36; RGBA premultiplied)."""
-    from materialrefgs_torch.utils import png, resample
+    from materialrefgs_torch.data.readers import read_image
+    from materialrefgs_torch.utils import resample
 
     layouts = [
         lambda n: os.path.join(source_path, "normal", n + ".png"),
@@ -54,7 +56,7 @@ def load_gt_normals(source_path, image_names, hw):
             continue
         normals, masks = [], []
         for n in image_names:
-            arr = png.read_png(layout(n))
+            arr = read_image(layout(n), device)
             if arr.shape[:2] != tuple(hw):
                 arr = resample.resize(arr, (hw[1], hw[0]), resample.BILINEAR)
             arr = arr.astype(np.float32) / 255.0
@@ -202,7 +204,7 @@ def main(argv=None) -> dict:
         images = [scene.test_image(i) for i in range(len(scene.test_cameras))]
         test_names = [ci.image_name for ci in scene.info.test_cameras]
         gt_normals, gt_nmasks = load_gt_normals(
-            args.source_path, test_names, images[0].shape[:2]
+            args.source_path, test_names, images[0].shape[:2], device
         )
         if gt_normals is not None:
             print(f"GT normals found for {len(gt_normals)} test views (normal MAE on)")

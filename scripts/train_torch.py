@@ -50,31 +50,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def load_masks(mask_dir, train_infos, hw):
-    """Foreground masks from RGBA PNGs (last channel > 128), one per train
-    view, or None when any is missing (reference get_mask_dir,
-    train_glossy.py:101-134). A mask of another size than the images is
-    resized first, as Pillow's NEAREST does (scripts/train.py:194-195)."""
-    from materialrefgs_torch.utils import png, resample
+def load_masks(mask_dir, train_infos, hw, device=None):
+    """Foreground masks from `{image_name}.png` files (last channel > 128;
+    decoded by content, as Pillow opens them: PNG or JPEG, a JPEG partly on
+    `device`), one per train view, or None when any is missing (reference
+    get_mask_dir, train_glossy.py:101-134). A mask of another size than the
+    images is resized first, as Pillow's NEAREST does (scripts/train.py:194-195)."""
+    from materialrefgs_torch.data.readers import read_image
+    from materialrefgs_torch.utils import resample
 
     masks = []
     for ci in train_infos:
         p = os.path.join(mask_dir, ci.image_name + ".png")
         if not os.path.exists(p):
             return None
-        arr = png.read_png(p)
+        arr = read_image(p, device)
         if arr.shape[:2] != tuple(hw):
             arr = resample.resize(arr, (hw[1], hw[0]), resample.NEAREST)
         masks.append((arr[..., -1] > 128).astype(np.float32))
     return masks
 
 
-def load_normal_priors(metric3d_path, source_path, preset, train_infos):
+def load_normal_priors(metric3d_path, source_path, preset, train_infos, device=None):
     """Metric3D mono-normal priors, (H, W, 3) camera-space normals v/255*2-1,
     one per train view, or None when any is missing. The layout differs per
     preset (train_glossy.py:62 `{scan}/normal`, train_refnerf.py:60
-    `{scan}_train/normal`); a flat dir of `{image_name}.png` also works."""
-    from materialrefgs_torch.utils import png
+    `{scan}_train/normal`); a flat dir of `{image_name}.png` also works.
+    Files decode by content, as load_masks's do."""
+    from materialrefgs_torch.data.readers import read_image
 
     scan = os.path.basename(os.path.normpath(source_path))
     suffix = "" if preset == "glossy" else "_train"
@@ -86,21 +89,22 @@ def load_normal_priors(metric3d_path, source_path, preset, train_infos):
         p = os.path.join(prior_rt, ci.image_name + ".png") if prior_rt else ""
         if not (p and os.path.exists(p)):
             return None
-        priors.append((png.read_png(p).astype(np.float32) / 255.0 * 2 - 1)[..., :3])
+        priors.append((read_image(p, device).astype(np.float32) / 255.0 * 2 - 1)[..., :3])
     return priors
 
 
-def load_ref_score_masks(ref_score_path, train_infos):
+def load_ref_score_masks(ref_score_path, train_infos, device=None):
     """Precomputed reflection-score masks (train_refreal.py:177-185): last
-    channel > 128, one per train view; a missing file raises."""
-    from materialrefgs_torch.utils import png
+    channel > 128, one per train view, decoded by content as load_masks's;
+    a missing file raises."""
+    from materialrefgs_torch.data.readers import read_image
 
     masks = []
     for ci in train_infos:
         p = os.path.join(ref_score_path, ci.image_name + ".png")
         if not os.path.exists(p):
             raise FileNotFoundError(f"--ref_score_path given but {p} is missing")
-        masks.append((png.read_png(p)[..., -1] > 128).astype(np.float32))
+        masks.append((read_image(p, device)[..., -1] > 128).astype(np.float32))
     return masks
 
 
@@ -217,17 +221,18 @@ def main(argv=None) -> dict:
         auto = {"glossy": "rgb", "refnerf": "train", "refreal": "mask"}[args.preset]
         cand = os.path.join(args.source_path, auto)
         mask_dir = cand if os.path.isdir(cand) else None
-    masks = load_masks(mask_dir, scene.info.train_cameras, (H, W)) if mask_dir else None
+    masks = load_masks(mask_dir, scene.info.train_cameras, (H, W), device) if mask_dir else None
     if masks is not None:
         print(f"Loaded {len(masks)} foreground masks from {mask_dir}")
     priors = None
     if args.metric3d_path and os.path.isdir(args.metric3d_path):
-        priors = load_normal_priors(args.metric3d_path, args.source_path, args.preset, scene.info.train_cameras)
+        priors = load_normal_priors(args.metric3d_path, args.source_path, args.preset, scene.info.train_cameras,
+                                    device)
         print(f"Loaded {len(priors)} normal priors from {args.metric3d_path}" if priors is not None
               else f"[warn] --metric3d_path {args.metric3d_path}: a train view has no prior; mono-normal off")
     ref_score_masks = None
     if args.ref_score_path and args.ref_score_path != "auto":
-        ref_score_masks = load_ref_score_masks(args.ref_score_path, scene.info.train_cameras)
+        ref_score_masks = load_ref_score_masks(args.ref_score_path, scene.info.train_cameras, device)
 
     pcd = scene.info.point_cloud
     if len(pcd.points) > args.capacity:

@@ -2,8 +2,9 @@
 reader (binary and text, SIMPLE_PINHOLE and PINHOLE, an off-centre principal
 point, W != H, the refusal of distorted models), the cameras built from it at
 -r 2, the image loader's Pillow resizes (LANCZOS for photos, NEAREST for
-masks, BILINEAR for GT normal maps) and the refusal of images that are not
-PNG. The scenes are written here; the JAX side reads them with Pillow."""
+masks, BILINEAR for GT normal maps) and the refusal of images the port
+cannot decode. The scenes are written here; the JAX side reads them with
+Pillow."""
 import importlib.util
 import os
 import shutil
@@ -228,14 +229,18 @@ def test_masks_and_gt_normals_of_another_size(tmp_path):
 
 
 def test_images_that_are_not_png_are_refused(tmp_path):
-    """A JPEG photo raises NotImplementedError naming the ROADMAP item of the
-    decoder when the loader reads it."""
+    """Photos the port cannot decode raise NotImplementedError naming the
+    ROADMAP item of the decoder when the loader reads them: a CMYK JPEG
+    (four components) and a file that is neither PNG nor JPEG. A JPEG photo
+    itself loads (tests/test_torch_jpeg.py holds it to Pillow)."""
     root = str(tmp_path / "scene")
     write_colmap(root, ring_eyes(2), (40, 30))
     os.makedirs(os.path.join(root, "images"))
-    for i in range(2):
-        Image.fromarray(np.zeros((30, 40, 3), np.uint8)).save(os.path.join(root, "images", f"view_{i:03d}.png"),
-                                                              format="JPEG")
+    Image.fromarray(np.zeros((30, 40, 4), np.uint8), "CMYK").save(os.path.join(root, "images", "view_000.png"),
+                                                                   format="JPEG")
+    with open(os.path.join(root, "images", "view_001.png"), "wb") as f:
+        f.write(b"GIF89a" + bytes(64))
     info = trd.load_scene_info(root)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        trd.load_image(info.train_cameras[0], 2)
+    for cam in info.train_cameras:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+            trd.load_image(cam, 2, device="cpu")

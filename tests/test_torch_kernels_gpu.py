@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (tile rasterizer forward and
-backward, bundle tracer forward and backward) against their plain torch
-versions, on the card. Marked `gpu`; each test skips where no CUDA card is present.
+backward, bundle tracer forward and backward, the JPEG decoder's inverse
+DCT and colour conversion) against their plain torch versions, on the card. Marked `gpu`; each test skips where no CUDA card is present.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -18,6 +18,7 @@ from materialrefgs_torch.ops.rasterize.layout import out_layout  # noqa: E402
 from materialrefgs_torch.ops.tracer import api as tracer_api  # noqa: E402
 from materialrefgs_torch.ops.tracer import layout as tlay  # noqa: E402
 from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd  # noqa: E402
+from materialrefgs_torch.utils import jpeg  # noqa: E402
 
 # Per output group (tests/test_rasterize_pallas.py); contributor indices exact.
 TOLS = {
@@ -400,3 +401,33 @@ def test_trace_kernels_match_plain_on_partial_tile_bundles(cuda_device, exact):
         assert _per_value_ok(dp[lo:hi], rp[lo:hi]) <= 1.0, (lo, hi)
     for lo, hi in ((0, 3), (3, 6)):
         assert _per_value_ok(dr[..., lo:hi], rr[..., lo:hi]) <= 1.0, (lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampling,rgb", [((1, 1), False), ((2, 1), False), ((2, 2), False), ((1, 2), False),
+                                          (None, False), ((1, 1), True), ((2, 2), True)],
+                         ids=["444", "422", "420", "440", "gray", "rgb-444", "rgb-420"])
+def test_jpeg_kernel_matches_plain(cuda_device, tmp_path, sampling, rgb):
+    """idct_color's kernel against its plain version on the coefficients of
+    chip_smoke_jpeg's files (odd sizes, a restart interval; YCbCr, gray and
+    RGB stored untransformed): every byte equal, one launch per call."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke_jpeg
+
+    rng = np.random.default_rng(3)
+    for H, W in ((1, 1), (37, 53), (821, 1236)):
+        img = rng.integers(0, 256, size=(H, W, 3)).astype(np.uint8)
+        path = str(tmp_path / "p.jpg")
+        chip_smoke_jpeg.write_jpeg(path, img[..., 0] if sampling is None else img, quality=95,
+                                   sampling=sampling or (1, 1), restart_interval=5, rgb=rgb)
+        co = jpeg.read_coefficients(path)
+        assert co.color == (jpeg.GRAY if sampling is None else jpeg.RGB if rgb else jpeg.YCC)
+        args = (torch.from_numpy(co.coef), torch.from_numpy(co.quant), co.comps, co.height, co.width, co.color)
+        before = jpeg.idct_color.launches
+        out = jpeg.idct_color(args[0].to(cuda_device), args[1].to(cuda_device), *args[2:])
+        torch.cuda.synchronize()
+        assert jpeg.idct_color.launches == before + 1
+        np.testing.assert_array_equal(out.cpu().numpy(), jpeg.idct_color_plain(*args).numpy())

@@ -191,9 +191,9 @@ def test_eval_colmap_scene_matches_jax(tmp_path, monkeypatch, same_texel_grid, p
     106x74 photos served at the run's -r 2 (53x37, no side a multiple of 16)
     through scripts/eval_torch.py and scripts/eval.py from the same PLY and a
     refreal cfg_args.json: equal PSNR and SSIM, as
-    test_eval_end_to_end_matches_jax holds the Blender path. Photos the port
-    cannot decode yet (JPEG) raise NotImplementedError naming the ROADMAP
-    item of the decoder."""
+    test_eval_end_to_end_matches_jax holds the Blender path; for JPEG photos
+    the port's decoder (host entropy decode, the kernel's plain version on
+    the CPU) stands where the JAX side has Pillow."""
     import dataclasses
 
     from PIL import Image
@@ -224,10 +224,6 @@ def test_eval_colmap_scene_matches_jax(tmp_path, monkeypatch, same_texel_grid, p
     spec = importlib.util.spec_from_file_location("eval_torch", os.path.join(REPO, "scripts", "eval_torch.py"))
     eval_torch = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(eval_torch)
-    if photo_format == "JPEG":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-            eval_torch.main(["-m", runs["torch"], *argv])
-        return
     spec = importlib.util.spec_from_file_location("jax_eval", os.path.join(REPO, "scripts", "eval.py"))
     jax_eval = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_eval)
