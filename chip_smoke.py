@@ -91,7 +91,7 @@ Phases (any failure exits non-zero before the result lines are printed):
      masks and camera-space normal priors rendered from phase 4's model):
      (a) from phase 12's iteration_240 (main + env PLY) 20 `surfel2` steps
      (241-260) across refnerf's gate at 250 (base-colour warp, mesh
-     extracted at the onset, no re-extraction), counts zeroed just before
+     extracted at the onset on a 128^3 grid, no re-extraction), counts zeroed just before
      and read just after, s/step on each side of
      the gate; then the warp's cost as a pair: on (a)'s final state, two
      views each step with the warp off and on, alternating, every step from
@@ -112,7 +112,7 @@ Phases (any failure exits non-zero before the result lines are printed):
      D2H) and the kernel held to its plain version on photo 0; (b)
      scripts/train_torch.py --preset refreal -r 4 (1236x821: partial tiles,
      an odd height) --schedule_scale 0.01 --iterations 170 --ref_score_path
-     auto --mesh_every 1000, with LPIPS at RANDOM weights in the documented
+     auto --mesh_every 1000 (the onset's TSDF on a 128^3 grid), with LPIPS at RANDOM weights in the documented
      .npz ($MATERIALREFGS_LPIPS_WEIGHTS): initial 1-30, surfel with the warp
      from 71, masks mined at 100, surfel2 from 126 (unbounded TSDF), LPIPS
      from 161; counts zeroed just before, read just after (the record's
@@ -145,12 +145,31 @@ Phases (any failure exits non-zero before the result lines are printed):
      interval, the kernel against its plain version on every byte; (b) a
      textured 4946x3286 photo (band-limited noise, quality 95), its decode
      in parts, the kernel's time against its bound and its plain version's;
-     (c) the native COLMAP parse against the pure one on phase 16's model.
+     (c) the native COLMAP parse against the pure one on phase 16's model;
+ 19. data parallelism: (a) scripts/train_torch.py --dp 1 over NCCL
+     and the plain Trainer from one seed on a scripts/make_synth_scene.py
+     scene at 800x800 (8 + 2 views, rendered by that script's numpy ray
+     tracer, written with the port's writers; 20,000 seed points), 12
+     iterations: initial 1-2, surfel 3-8 with the warp from 5 (virtual
+     cameras), surfel2 9-12 (splat visibility); counts zeroed just before
+     the --dp 1 run and read just after; the losses held to the plain
+     Trainer's within DP_LOSS_RTOL, s/step of both, the gradient
+     all_reduce's bytes and ms per step; both rasterizer kernels at a
+     tile-sharded block's grid (tile rows 25-49, row0 = 25) against their
+     plain versions, with times and bounds; (b) two ranks spawned on the one
+     card over gloo (CUDA tensors reduced through the host): the DP
+     production step on phase 4's model, each rank its own 800x800 view,
+     held to the two single-view steps (gradients, the densification sums,
+     denom, max radii), and rasterize_tile_sharded (two blocks of 25 tile
+     rows) held to rasterize (maps at tests/test_tile_sharding.py's
+     tolerances, gradients at 3e-3 x scale); time per rank, the gloo
+     all_reduce's bytes and ms.
 
 The second-to-last line is the kernels' JSON record (launches from phase 16's
-run (b), plus for the rasterizer phase 17's runs (a) and (b); times and bounds
-from phase 16 (c), the JPEG kernel's at phase 16's photo 0); the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+run (b) and phase 19 (a)'s --dp 1 run, plus for the rasterizer phase 17's
+runs (a) and (b); times and bounds from phase 16 (c), the JPEG kernel's at
+phase 16's photo 0); the last line is {"ok": true, "device": {...}}. The
+script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -222,6 +241,9 @@ S2_TEST_MARKS = (220, 240)
 WARP_VIEWS = 24
 WARP_GATE = 250
 WARP_A_END = 260
+# Run (a)'s onset TSDF grid: the 24 views' extraction at the Trainer's 256^3
+# took 47.1 s, a twentieth of the script (cut to make room for phase 19).
+WARP_MESH_RES = 128
 WARP_TERMS = ("loss_warp_geo", "loss_warp_ncc", "loss_warp_bc", "loss_warp_mtl", "loss_warp_rgh")
 W = H = 800
 N_VIEWS = 8
@@ -234,6 +256,9 @@ REAL_W, REAL_H = 4946, 3286  # a mip-NeRF 360 outdoor frame; -r 4 -> 1236x821
 REAL_VIEWS = 24
 REAL_ITERS = 170  # refreal x 0.01: initial 1-30, warp from 71, mining at 100, surfel2 from 126, LPIPS from 161
 REAL_POINTS = 100_000
+# The onset's unbounded TSDF grid: at the Trainer's 256^3 it took 41.3 s for
+# a 5,776-triangle mesh (cut to make room for phase 19).
+REAL_MESH_RES = 128
 # The main model's capacity: the reader's 100,000 points are subsampled to
 # half of it. With the default 1<<19 the compressed run reached 222k splats
 # at the surfel2 onset, whose env copy asked the env trace for 73-180M pairs
@@ -264,6 +289,20 @@ RES_STEPS = 15
 ASG_STEPS = 10
 SKY_H, SKY_W = 256, 512
 ALBEDO_STEPS = 5
+# Phase 19: data parallelism. (a) scripts/train_torch.py --dp 1 (NCCL) and
+# the plain Trainer from one seed on a scripts/make_synth_scene.py scene at
+# DP_RES (DP_TRAIN train + DP_TEST test views, one sample a pixel): 1-2
+# `initial`, 3-8 `surfel` with the warp from 5 (virtual cameras where a view
+# has no neighbour), 9-12 `surfel2`; the losses agree within DP_LOSS_RTOL
+# (the backward kernels' atomics make two runs differ by rounding). The seed
+# cloud is DP_POINTS of the script's surface samples (its default is
+# 100,000, whose env-GS copy asked the env trace for 129M pairs at the
+# onset, past the tracer's 67M ceiling). (b) two ranks on the one card over
+# gloo, each with its own view of phase 4's model.
+DP_RES, DP_TRAIN, DP_TEST, DP_ITERS = 800, 8, 2, 12
+DP_CAPACITY, DP_POINTS = 1 << 19, 20_000
+DP_LOSS_RTOL = 2e-2
+DP_GRAD_RTOL = 3e-3  # x the leaf's largest |value|, + 1e-5 (tests/test_data_parallel.py)
 # Tolerances per output group (the JAX package's tests/test_rasterize_pallas.py).
 TOLS = {
     "color": 2e-4, "feature": 2e-4, "normal": 2e-4, "M1": 2e-4, "M2": 2e-4,
@@ -1037,11 +1076,16 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     for fn in kernels:
         fn.launches = 0  # counts of this path's run only
     readers.read_image, readers.resample.resize = timed("decode", real_read), timed("resize", real_resize)
+    from materialrefgs_torch.train.trainer import Trainer
+
+    mesh_res = Trainer.MESH_RESOLUTION
+    Trainer.MESH_RESOLUTION = REAL_MESH_RES
     t0 = time.perf_counter()
     try:
         res = train_torch.main(argv)
     finally:
         readers.read_image, readers.resample.resize = real_read, real_resize
+        Trainer.MESH_RESOLUTION = mesh_res
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -1589,6 +1633,311 @@ def jpeg_phase(np, torch, dev, smi_line, work_dir, sparse):
           f"pure {pure_ms:.1f} ms; equal arrays")
     print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return dict(cases=n_cases, tex=tex_nums, native_ms=native_ms, pure_ms=pure_ms)
+
+
+def synth_scene(np, path, n_train, n_test, res, seed=1, n_points=100_000):
+    """A refnerf-layout scene from scripts/make_synth_scene.py's numpy ray
+    tracer (its geometry, materials, light and golden-angle spiral of views)
+    written with the port's PNG and PLY writers: that script's own main()
+    needs Pillow, which the card machine lacks. One sample a pixel."""
+    from materialrefgs_torch.utils import png
+    from materialrefgs_torch.utils.ply import write_point_cloud_ply
+
+    spec = importlib.util.spec_from_file_location("make_synth_scene", os.path.join(REPO, "scripts",
+                                                                                   "make_synth_scene.py"))
+    mss = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mss)
+    target = np.array([0.0, 0.0, 0.35])
+    golden = np.pi * (3 - np.sqrt(5))
+    for split, n in (("train", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(path, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            az = i * golden + (0.5 if split == "test" else 0.0)
+            el = np.deg2rad(12 + 55 * ((i * 0.61803) % 1.0))
+            eye = target + 3.3 * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
+            c2w = mss.look_at_c2w(eye, target)
+            rgb, alpha = mss.render_view(c2w, res, 0.8, 1, seed=i)
+            im = np.concatenate([rgb, alpha[..., None]], axis=-1)
+            png.write_png(os.path.join(path, split, f"r_{i}.png"), (im * 255).astype(np.uint8))
+            frames.append({"file_path": f"{split}/r_{i}", "transform_matrix": c2w.tolist()})
+        with open(os.path.join(path, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    pts, cols = mss.sample_points(n_points, np.random.default_rng(seed))
+    write_point_cloud_ply(os.path.join(path, "points3d.ply"), pts, cols)
+
+
+def _dp_rank(rank, job_path):
+    """One of phase 19 (b)'s two ranks on the one card over gloo: (b1) the
+    data-parallel production step on its own view against the mean of the
+    two single-view steps, (b2) rasterize_tile_sharded (25 tile rows each)
+    against rasterize. Writes its numbers to {job_path}.{rank}.json."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from materialrefgs_torch import config as cfg
+    from materialrefgs_torch.cameras import look_at_camera
+    from materialrefgs_torch.models import gaussian_io
+    from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
+    from materialrefgs_torch.parallel import tile_sharding
+    from materialrefgs_torch.parallel.data_parallel import make_dp_production_step
+    from materialrefgs_torch.render.renderers import RenderOptions, render_surfel
+    from materialrefgs_torch.train.trainer import init_train_state, make_train_step
+
+    with open(job_path) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)  # both ranks share the one card
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=job["init"], world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    res = job["res"]
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def cam_of(i):
+        ang = 2 * math.pi * i / 2 + 0.4
+        eye = np.array([3.2 * math.sin(ang), 0.3, -3.2 * math.cos(ang)])
+        return look_at_camera(eye, np.zeros(3), np.array([0.0, 1.0, 0.0]), 0.8, 0.8, res, res, device=dev)
+
+    # (b1) The DP production step against the two single-view steps.
+    _, pipe, opt = cfg.preset_refnerf()
+
+    def fresh_state():
+        model, env1, _ = gaussian_io.load_ply(job["model_ply"], device=dev)
+        st = init_train_state(model, envmap_res=env1.base.shape[1])
+        st.env1.base.data.copy_(env1.base)
+        return st
+
+    cam = cam_of(rank)
+    raster = api.RasterizeConfig(pair_capacity=job["pairs"])
+    st = fresh_state()
+    with torch.no_grad():
+        pkg = render_surfel(st.model, cam, torch.zeros(3, device=dev), None, RenderOptions(raster=raster),
+                            wo_render_img=True)
+        gt = torch.clamp(0.1 + 0.8 * pkg["rend_alpha"].expand(-1, -1, 3), 0, 1)
+    extra = {"iteration": 5000.0, "lambda_normal_render_depth": 0.05, "bg": torch.zeros(3, device=dev)}
+    names = list(st.params())
+    stats = ("xyz_gradient_accum", "denom", "max_radii2d")
+    plain = make_train_step("surfel", opt, pipe, 3.0, raster)
+    sync()
+    t0 = time.perf_counter()
+    plain(st, cam, gt, dict(extra))
+    sync()
+    out["plain_step_s"] = time.perf_counter() - t0
+    # A fresh Adam's first moment is (1 - b1) g.
+    single = {k: st.adam.mu[k] / 0.1 for k in names}
+    single.update({k: getattr(st.model, k).clone() for k in stats})
+    for k in names + ["xyz_gradient_accum", "denom"]:
+        dist.all_reduce(single[k])  # the two views' sum (gloo, through the host)
+    dist.all_reduce(single["max_radii2d"], op=dist.ReduceOp.MAX)
+    del st
+    st = fresh_state()
+    step = make_dp_production_step(None, "surfel", opt, pipe, 3.0, raster)
+    fwd0, bwd0 = tiles_fwd.rasterize_tiles_fwd.launches, tiles_bwd.rasterize_tiles_bwd.launches
+    sync()
+    t0 = time.perf_counter()
+    m = step(st, cam, gt, dict(extra))
+    sync()
+    out["dp_step_s"] = time.perf_counter() - t0
+    out["launches"] = [tiles_fwd.rasterize_tiles_fwd.launches - fwd0, tiles_bwd.rasterize_tiles_bwd.launches - bwd0]
+    out["allreduce_bytes"], out["allreduce_ms"] = m["dp_allreduce_bytes"], m["dp_allreduce_ms"]
+    worst = 0.0
+    for k in names:
+        g_dp, g_mean = st.adam.mu[k] / 0.1, single[k] / 2
+        scale = max(float(g_mean.abs().max()), 1e-3)
+        ratio = float((g_dp - g_mean).abs().max()) / (DP_GRAD_RTOL * scale + 1e-5)
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"rank {rank}: the DP step's gradient {k} is off the two views' mean ({ratio:.3f} x tol)")
+    out["grad_err_over_tol"] = worst
+    check(bool(torch.equal(st.model.denom, single["denom"])), "DP denom is not the sum of the two views'")
+    check(bool(torch.equal(st.model.max_radii2d, single["max_radii2d"])), "DP max_radii2d is not the views' max")
+    acc, acc_ref = st.model.xyz_gradient_accum, single["xyz_gradient_accum"]
+    acc_ratio = float((acc - acc_ref).abs().max()) / (DP_GRAD_RTOL * max(float(acc_ref.abs().max()), 1e-3) + 1e-5)
+    check(acc_ratio <= 1.0, f"rank {rank}: DP densification norms off the views' sum ({acc_ratio:.3f} x tol)")
+    out["stats_err_over_tol"] = acc_ratio
+    out["denom_seen_by_both"] = int((st.model.denom == 2).sum())
+    del st, single
+
+    # (b2) Tile-sharded rasterization of one view (two blocks of rows).
+    rng = np.random.default_rng(7)
+    params, _ = bench_scene(np, seed=3)
+    P = len(params["xyz"])
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = [t(params["xyz"]), t(np.exp(params["scaling"])),
+            t(params["rotation"] / np.linalg.norm(params["rotation"], axis=-1, keepdims=True)),
+            t(1 / (1 + np.exp(-params["opacity"][:, 0]))), t(rng.uniform(size=(P, 3))),
+            t(rng.uniform(size=(P, 9)))]
+    args = [a.requires_grad_(True) for a in args]
+    cam0 = cam_of(0)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+
+    def loss_of(o):
+        return torch.mean((o["render"] - 0.3) ** 2) + 0.01 * torch.mean(o["depth"])
+
+    timings = {}
+    for name, fn in (("full", lambda: api.rasterize(*args, cam0, bg, config=raster)),
+                     ("sharded", lambda: tile_sharding.rasterize_tile_sharded(None, *args, cam0, bg, config=raster))):
+        fn()  # warm
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        o = fn()
+        g = torch.autograd.grad(loss_of(o), args)
+        sync()
+        timings[name] = (time.perf_counter() - t0, o, g)
+    out["full_s"], out["sharded_s"] = timings["full"][0], timings["sharded"][0]
+    (_, ref, gref), (_, sh, gsh) = timings["full"], timings["sharded"]
+    fwd_err = 0.0
+    for k in ("render", "feature", "normal", "depth", "alpha", "distortion"):
+        err = float((sh[k] - ref[k]).detach().abs().max())
+        fwd_err = max(fwd_err, err)
+        check(bool(torch.all((sh[k] - ref[k]).detach().abs() <= 2e-4 + 1e-3 * ref[k].detach().abs())),
+              f"rank {rank}: the tile-sharded {k} is off rasterize's ({err:.3e})")
+    check(int(sh["overflow"]) == 0 and int(ref["overflow"]) == 0, "tile-sharded render overflowed")
+    gworst = 0.0
+    for name, a, b in zip(("means", "scales", "rotations", "opacities", "colors", "features"), gsh, gref):
+        scale = max(float(b.abs().max()), 1e-3)
+        ratio = float((a - b).abs().max()) / (DP_GRAD_RTOL * scale + 1e-5)
+        gworst = max(gworst, ratio)
+        check(ratio <= 1.0, f"rank {rank}: the tile-sharded gradient of {name} is off ({ratio:.3f} x tol)")
+    out["tile_fwd_err"], out["tile_grad_err_over_tol"] = fwd_err, gworst
+    with open(f"{job_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_phase(np, torch, dev, smi_line, work_dir, train_torch, model_ply):
+    """Phase 19 (see the module docstring). Returns the kernels' launches in
+    (a)'s --dp 1 run and the rasterizer kernels' numbers at a block's grid."""
+    from materialrefgs_torch.ops.rasterize import tiles_bwd, tiles_fwd
+    from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
+    from materialrefgs_torch.parallel import multihost
+
+    fns = {"rasterize_tiles_fwd": tiles_fwd.rasterize_tiles_fwd, "rasterize_tiles_bwd": tiles_bwd.rasterize_tiles_bwd,
+           "trace_bundles_fwd": trace_fwd.trace_bundles_fwd, "trace_bundles_bwd": trace_bwd.trace_bundles_bwd}
+    # (a) --dp 1 over NCCL against the plain Trainer.
+    scene = os.path.join(work_dir, "dp_scene")
+    t0 = time.perf_counter()
+    synth_scene(np, scene, DP_TRAIN, DP_TEST, DP_RES, n_points=DP_POINTS)
+    print(f"  (a) scripts/make_synth_scene.py's scene: {DP_TRAIN} + {DP_TEST} views at {DP_RES}x{DP_RES} rendered "
+          f"and written in {time.perf_counter() - t0:.1f} s")
+    base = ["-s", scene, "--schedule_scale", "0.01", "--iterations", str(DP_ITERS), "--capacity", str(DP_CAPACITY),
+            "--pair_capacity", str(1 << 20), "--log_every", "1", "--init_until_iter", "2",
+            "--multi_view_weight_from_iter", "4", "--indirect_from_iter", "8", "--use_virtul_cam",
+            "--no_mesh_visibility"]
+    if dev.type == "cpu":
+        base += ["--device", "cpu"]
+    logs, launches = {}, {}
+    for name, extra in (("dp1", ["--dp", "1"]), ("plain", [])):
+        argv = base + ["-m", os.path.join(work_dir, f"dp_run_{name}")] + extra
+        print("  python scripts/train_torch.py " + " ".join(argv))
+        for fn in fns.values():
+            fn.launches = 0  # counts of this path's run only
+        t0 = time.perf_counter()
+        res = train_torch.main(argv)
+        logs[name] = res["trainer"].metrics_log
+        launches[name] = {k: fn.launches for k, fn in fns.items()}
+        print(f"    {len(logs[name])} steps in {time.perf_counter() - t0:.1f} s; launches {launches[name]}")
+    dp_log, plain_log = logs["dp1"], logs["plain"]
+    check([m["iteration"] for m in dp_log] == list(range(1, DP_ITERS + 1)), "--dp 1 skipped iterations")
+    check([m["stage"] for m in dp_log] == ["initial"] * 2 + ["surfel"] * 6 + ["surfel2"] * 4,
+          "--dp 1 stages are not 1-2 initial, 3-8 surfel, 9-12 surfel2")
+    check(all(m["warp_on"] for m in dp_log[4:]), "the warp was off past its gate")
+    for k, v in launches["dp1"].items():
+        check(v > 0, f"{k} was not launched on the --dp 1 path")
+    worst = 0.0
+    for a, b in zip(dp_log, plain_log):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        worst = max(worst, rel)
+        print(f"    it {a['iteration']:2d} {a['stage']:7s} loss --dp 1 {a['loss']:.6f} plain {b['loss']:.6f} "
+              f"(rel {rel:.2e}); n_alive {a['n_alive']} / {b['n_alive']}; all_reduce "
+              f"{a['dp_allreduce_bytes'] / 2**20:.1f} MiB in {a['dp_allreduce_ms']:.3f} ms")
+        check(math.isfinite(a["loss"]), "non-finite loss under --dp 1")
+    check(worst <= DP_LOSS_RTOL, f"--dp 1's losses are {worst:.3e} off the plain Trainer's (> {DP_LOSS_RTOL})")
+
+    def median_step(log, lo, hi):
+        w = sorted(b["wall"] - a["wall"] for a, b in zip(log, log[1:]) if lo <= b["iteration"] <= hi)
+        return w[len(w) // 2]
+
+    step_s = {}
+    for stage, lo, hi in (("surfel+warp", 6, 8), ("surfel2", 10, 12)):
+        step_s[stage] = (median_step(dp_log, lo, hi), median_step(plain_log, lo, hi))
+        print(f"  (a) host s/step, {stage} (iterations {lo}-{hi}, median): --dp 1 {step_s[stage][0]:.4f}, plain "
+              f"Trainer {step_s[stage][1]:.4f} ({smi_line})")
+    ar = [m["dp_allreduce_ms"] for m in dp_log]
+    ar_bytes = int(dp_log[-1]["dp_allreduce_bytes"])
+    print(f"  (a) NCCL all_reduce of the gradients, world size 1: {ar_bytes} bytes ({ar_bytes / 2**20:.1f} MiB) "
+          f"a step in surfel2, median {sorted(ar)[len(ar) // 2]:.3f} ms (min {min(ar):.3f}, max {max(ar):.3f}); "
+          f"largest relative loss difference {worst:.3e} (tolerance {DP_LOSS_RTOL})")
+
+    # The tile kernels on a block's grid (row0 = 25 of 50 tile rows): the
+    # kernel change that keeps a tile-sharded block in the view's frame.
+    from materialrefgs_torch.cameras import look_at_camera
+    from materialrefgs_torch.ops.rasterize import api
+    from materialrefgs_torch.parallel import tile_sharding
+
+    params, _ = bench_scene(np, seed=3)
+    P = len(params["xyz"])
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = [t(params["xyz"]), t(np.exp(params["scaling"])),
+            t(params["rotation"] / np.linalg.norm(params["rotation"], axis=-1, keepdims=True)),
+            t(1 / (1 + np.exp(-params["opacity"][:, 0]))), t(rng.uniform(size=(P, 3))),
+            t(rng.uniform(size=(P, 9)))]
+    args = [a.requires_grad_(True) for a in args]
+    eye = np.array([3.2 * math.sin(0.4), 0.3, -3.2 * math.cos(0.4)])
+    cam = look_at_camera(eye, np.zeros(3), np.array([0.0, 1.0, 0.0]), 0.8, 0.8, DP_RES, DP_RES, device=dev)
+    rows = (DP_RES + 15) // 16 // 2
+    cfg_block = api.RasterizeConfig(pair_capacity=PAIR_CAPACITY)
+
+    def block_step():
+        out, _ = tile_sharding._tile_local_render(*args, cam, 1.0, cfg_block, rows, rows)
+        torch.autograd.grad(out[..., :3].square().mean(), args)
+
+    caps = capture_raster(torch, api, block_step)
+    check(len(caps) == 1 and caps[0][1]["row0"] == rows, "the block's backward was not captured")
+    block = raster_at(np, torch, f"tile rows {rows}-{2 * rows - 1} of a {DP_RES}x{DP_RES} view (row0 = {rows})",
+                      caps[0])
+    del caps
+
+    # (b) two ranks on the one card over gloo, CUDA tensors through the host.
+    import torch.multiprocessing as mp
+
+    job_path = os.path.join(work_dir, "dp_job.json")
+    with open(job_path, "w") as f:
+        json.dump({"init": f"tcp://localhost:{multihost.free_port()}", "device": str(dev), "res": DP_RES,
+                   "model_ply": model_ply, "pairs": PAIR_CAPACITY}, f)
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, args=(job_path,), nprocs=2, join=True, start_method="spawn")
+    print(f"  (b) two ranks sharing the one card over gloo (CUDA tensors reduced through the host): done in "
+          f"{time.perf_counter() - t0:.1f} s, including their start")
+    ranks = []
+    for r in range(2):
+        with open(f"{job_path}.{r}.json") as f:
+            ranks.append(json.load(f))
+    for r, o in enumerate(ranks):
+        check(o["backend"] == "gloo" and o["device"].startswith(dev.type), f"rank {r} ran on {o}")
+        check(min(o["launches"]) > 0, f"rank {r}'s DP step launched no rasterizer kernel")
+        print(f"  (b) rank {r} on {o['device']} over {o['backend']}: DP production step {o['dp_step_s']:.4f} s "
+              f"(single-view step {o['plain_step_s']:.4f} s); gloo all_reduce {o['allreduce_bytes']} bytes in "
+              f"{o['allreduce_ms']:.1f} ms; gradients {o['grad_err_over_tol']:.3f} x tol, densification norms "
+              f"{o['stats_err_over_tol']:.3f} x tol of the two views' mean/sum ({o['denom_seen_by_both']} splats "
+              f"seen by both); tile-sharded {DP_RES}x{DP_RES} in two blocks of {DP_RES // 32} tile rows: fwd+bwd "
+              f"{o['sharded_s']:.4f} s "
+              f"against the whole view's {o['full_s']:.4f} s, maps max|err| {o['tile_fwd_err']:.3e}, gradients "
+              f"{o['tile_grad_err_over_tol']:.3f} x tol")
+    print(f"  ({smi_line})")
+    return launches["dp1"], block
 
 
 def pow2_at_least(n):
@@ -2633,7 +2982,8 @@ def main() -> int:
     # init skipped (the env PLY), mesh extracted at 241, 20 surfel2 steps.
     # Cuts: phase 12's (the main model's densify and resets off past 240),
     # and --mesh_every 1000: no re-extraction in the run (each TSDF over the
-    # 24 views costs about as much as 30 steps).
+    # 24 views costs about as much as 30 steps); the onset's TSDF at
+    # WARP_MESH_RES^3.
     a_run = os.path.join(work_dir, "warp_run_a")
     a_start = os.path.dirname(s2_res["ply"])  # phase 12's iteration_240: point_cloud.ply + env_point_cloud.ply
     a_argv = ["-s", warp_scene, "-m", a_run, "--schedule_scale", "0.01", "--start_ply", a_start,
@@ -2644,8 +2994,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn):
         fn.launches = 0  # counts of this path's run only
+    mesh_res = Trainer.MESH_RESOLUTION
+    Trainer.MESH_RESOLUTION = WARP_MESH_RES
     t0 = time.perf_counter()
-    a_res = train_torch.main(a_argv)
+    try:
+        a_res = train_torch.main(a_argv)
+    finally:
+        Trainer.MESH_RESOLUTION = mesh_res
     torch.cuda.synchronize()
     a_s = time.perf_counter() - t0
     a_launches = {fn.__name__: fn.launches for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn)}
@@ -2847,10 +3202,14 @@ def main() -> int:
     phase("18. the JPEG decoder and the native COLMAP parse")
     p18 = jpeg_phase(np, torch, dev, smi_line, work_dir, real["sparse"])
     jp = real["jpeg"]
+    # ----------------------------------------------------------------- 19 --
+    phase("19. data parallelism: --dp 1 over NCCL, two ranks on the card over gloo, tile-sharded rendering")
+    dp_launches, dp_block = dp_phase(np, torch, dev, smi_line, work_dir, train_torch, ply)
 
     # The rasterizer rows count the main paths' launches: refreal's run
-    # (phase 16 (b)) and phase 17's residual and ASG runs.
-    raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k]
+    # (phase 16 (b)), phase 17's residual and ASG runs and phase 19 (a)'s
+    # --dp 1 run; the tracer rows refreal's and --dp 1's.
+    raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k] + dp_launches[k]
                        for k in ("rasterize_tiles_fwd", "rasterize_tiles_bwd")}
 
     record = {"kernels": [
@@ -2860,7 +3219,7 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
             "launches": raster_launches["rasterize_tiles_fwd"],
-            "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"]),
+            "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"], dp_block["fwd"]["err"]),
             "ms": rr_["fwd"]["ms"],
             "plain_ms": rr_["fwd"]["plain_ms"],
             "bound_ms": rr_["fwd"]["bound"],
@@ -2873,7 +3232,7 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
             "launches": raster_launches["rasterize_tiles_bwd"],
-            "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"]),
+            "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"], dp_block["bwd"]["err"]),
             "ms": rr_["bwd"]["ms"],
             "plain_ms": rr_["bwd"]["plain_ms"],
             "bound_ms": rr_["bwd"]["bound"],
@@ -2885,7 +3244,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:348",
-            "launches": real["launches"]["trace_bundles_fwd"],
+            "launches": real["launches"]["trace_bundles_fwd"] + dp_launches["trace_bundles_fwd"],
             "max_abs_err": max([t["err"] for t in trace_times.values()] + [f_err, rt_["fwd"]["err"]]),
             "ms": rt_["fwd"]["ms"],
             "plain_ms": rt_["fwd"]["plain_ms"],
@@ -2898,7 +3257,7 @@ def main() -> int:
             "route": "cuda",
             "source": "materialrefgs_torch/csrc/trace_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/tracer/pallas_kernels.py:586",
-            "launches": real["launches"]["trace_bundles_bwd"],
+            "launches": real["launches"]["trace_bundles_bwd"] + dp_launches["trace_bundles_bwd"],
             "max_abs_err": max(tbwd_errs + [s_bwd_err, rt_["bwd"]["err"]]),
             "ms": rt_["bwd"]["ms"],
             "plain_ms": rt_["bwd"]["plain_ms"],
@@ -2925,7 +3284,8 @@ def main() -> int:
           + ", ".join(f"{v} views run ({r}): {s['trace']}" for (v, r), s in served.items())
           + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a)) launches: {a_launches}; "
           f"refreal path (phase 16 (b)) launches: {real['launches']}; residual path (phase 17 (a)) launches: "
-          f"{p17['a_launches']}; ASG path (phase 17 (b)) launches: {p17['b_launches']}")
+          f"{p17['a_launches']}; ASG path (phase 17 (b)) launches: {p17['b_launches']}; --dp 1 path (phase 19 (a)) "
+          f"launches: {dp_launches}")
     print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (iii) "
           f"{raster_iii['fwd']['ms']:.4f} ms (bound {raster_iii['fwd']['bound']:.4f}, plain "
           f"{raster_iii['fwd']['plain_ms']:.1f}); bit-identical at both")

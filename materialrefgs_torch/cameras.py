@@ -201,6 +201,44 @@ def make_camera(
     )
 
 
+def make_minicam(
+    width: int,
+    height: int,
+    fovy: float,
+    fovx: float,
+    world_view: np.ndarray,
+    full_proj: np.ndarray,
+    znear: float = ZNEAR,
+    zfar: float = ZFAR,
+    device: str | torch.device | None = None,
+) -> Camera:
+    """MiniCam (scene/cameras.py:117; the JAX package's make_minicam): a
+    camera from raw transposed transform matrices (the remote-viewer
+    protocol)."""
+    dev = resolve_device(device)
+    cam_center = np.linalg.inv(np.asarray(world_view))[3, :3]
+    fx, fy = fov2focal(fovx, width), fov2focal(fovy, height)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return Camera(
+        world_view=t(world_view),
+        full_proj=t(full_proj),
+        camera_center=t(cam_center),
+        fx=_f32(fx),
+        fy=_f32(fy),
+        cx=_f32(0.5 * width),
+        cy=_f32(0.5 * height),
+        width=int(width),
+        height=int(height),
+        fovx=float(fovx),
+        fovy=float(fovy),
+        znear=float(znear),
+        zfar=float(zfar),
+    )
+
+
 def look_at_camera(
     eye: np.ndarray,
     target: np.ndarray,

@@ -222,7 +222,7 @@ rasterize_bwd_kernel(const float* __restrict__ payload, long long ld,
                      const int* __restrict__ order,
                      const float* __restrict__ fwd_out,
                      const float* __restrict__ cot,
-                     float* __restrict__ dpair, int grid_x) {
+                     float* __restrict__ dpair, int grid_x, int row0) {
   constexpr int ACC = S + 6;           // color(3) + features(S) + normal(3)
   constexpr int NROW = ROW_LIN + ACC;  // payload rows read = gradient rows written
   constexpr int ROW_THR = NROW;        // the prefilter bound of each staged pair
@@ -239,7 +239,7 @@ rasterize_bwd_kernel(const float* __restrict__ payload, long long ld,
   const int lane = pid & 31;
   const int warp = pid >> 5;
   const float pix_x = (float)((t % grid_x) * TILE + pid % TILE);
-  const float pix_y = (float)((t / grid_x) * TILE + pid / TILE);
+  const float pix_y = (float)((t / grid_x + row0) * TILE + pid / TILE);
   const int start = tile_start[t];
 
   const float* f = fwd_out + ((long long)t * PIX + pid) * C_OUT;
@@ -439,13 +439,13 @@ template <int S>
 cudaError_t launch(const float* payload, long long ld, const int* tile_start,
                    const int* tile_count, const int* tile_active, const int* order,
                    const float* fwd_out, const float* cot, float* dpair,
-                   int num_tiles, int grid_x, cudaStream_t stream) {
+                   int num_tiles, int grid_x, int row0, cudaStream_t stream) {
   const int bytes = (int)sizeof(Smem<S>);
   cudaError_t e = cudaFuncSetAttribute(rasterize_bwd_kernel<S>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   rasterize_bwd_kernel<S><<<num_tiles, PIX, bytes, stream>>>(
-      payload, ld, tile_start, tile_count, tile_active, order, fwd_out, cot, dpair, grid_x);
+      payload, ld, tile_start, tile_count, tile_active, order, fwd_out, cot, dpair, grid_x, row0);
   return cudaGetLastError();
 }
 
@@ -456,20 +456,21 @@ cudaError_t launch(const float* payload, long long ld, const int* tile_start,
 // order: int32 permutation of the tiles, block b walks tile order[b];
 // fwd_out/cot: (grid_x*grid_y, 256, C_OUT(S)) float32; dpair: (ld, 12+S+6)
 // float32, zero-filled by the caller (rows of no tile, and the pairs no
-// pixel counts, stay zero). Returns the launch's cudaGetLastError()
-// (cudaErrorInvalidValue for an S it was not built for).
+// pixel counts, stay zero); row0 as in rasterize_tiles_fwd. Returns the
+// launch's cudaGetLastError() (cudaErrorInvalidValue for an S it was not
+// built for).
 extern "C" int rasterize_tiles_bwd(const float* payload, long long ld,
                                    const int* tile_start, const int* tile_count,
                                    const int* tile_active, const int* order,
                                    const float* fwd_out, const float* cot, float* dpair,
-                                   int S, int grid_x, int grid_y, void* stream) {
+                                   int S, int grid_x, int grid_y, int row0, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
 #define MRGS_BWD_CASE(N)                                                           \
   case N:                                                                          \
     return (int)launch<N>(payload, ld, tile_start, tile_count, tile_active, order, \
-                          fwd_out, cot, dpair, num_tiles, grid_x, s);
+                          fwd_out, cot, dpair, num_tiles, grid_x, row0, s);
   switch (S) {
     MRGS_BWD_CASE(1)
     MRGS_BWD_CASE(2)

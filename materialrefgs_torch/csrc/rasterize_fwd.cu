@@ -100,7 +100,7 @@ rasterize_fwd_kernel(const float* __restrict__ payload, long long ld,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const int* __restrict__ order,
-                     float* __restrict__ out, int grid_x, int W, int H) {
+                     float* __restrict__ out, int grid_x, int row0, int W, int H) {
   constexpr int ACC = S + 6;             // color(3) + features(S) + normal(3)
   constexpr int NROW = ROW_LIN + ACC;    // payload rows the forward reads
   constexpr int C_RAW = ACC + 8;         // out_layout(S)["_channels"]
@@ -112,7 +112,7 @@ rasterize_fwd_kernel(const float* __restrict__ payload, long long ld,
   const int t = order[blockIdx.x];
   const int pid = threadIdx.x;
   const int px_i = (t % grid_x) * TILE + pid % TILE;
-  const int py_i = (t / grid_x) * TILE + pid / TILE;
+  const int py_i = (t / grid_x + row0) * TILE + pid / TILE;
   const float pix_x = (float)px_i;
   const float pix_y = (float)py_i;
   const bool inside = px_i < W && py_i < H;
@@ -225,9 +225,9 @@ rasterize_fwd_kernel(const float* __restrict__ payload, long long ld,
 template <int S>
 cudaError_t launch(const float* payload, long long ld, const int* tile_start,
                    const int* tile_count, const int* order, float* out, int num_tiles,
-                   int grid_x, int W, int H, cudaStream_t stream) {
+                   int grid_x, int row0, int W, int H, cudaStream_t stream) {
   rasterize_fwd_kernel<S><<<num_tiles, PIX, 0, stream>>>(
-      payload, ld, tile_start, tile_count, order, out, grid_x, W, H);
+      payload, ld, tile_start, tile_count, order, out, grid_x, row0, W, H);
   return cudaGetLastError();
 }
 
@@ -236,19 +236,21 @@ cudaError_t launch(const float* payload, long long ld, const int* tile_start,
 // Plain C entry point (bound with ctypes). payload: (C_PAD, ld) float32 rows,
 // one column per sorted pair; tile_start/tile_count: int32 raw ranges;
 // order: int32 permutation of the tiles, block b renders tile order[b];
-// out: (grid_x*grid_y, 256, C_OUT(S)) float32. Returns the launch's
+// out: (grid_x*grid_y, 256, C_OUT(S)) float32; the grid's tile rows are the
+// view's rows row0 .. row0 + grid_y - 1 (a tile-sharded block; 0 for the
+// whole view), so pixel coordinates stay the view's own. Returns the launch's
 // cudaGetLastError() (cudaErrorInvalidValue for an S it was not built for).
 extern "C" int rasterize_tiles_fwd(const float* payload, long long ld,
                                    const int* tile_start, const int* tile_count,
                                    const int* order, float* out, int S, int grid_x,
-                                   int grid_y, int W, int H, void* stream) {
+                                   int grid_y, int row0, int W, int H, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
 #define MRGS_FWD_CASE(N)                                                                     \
   case N:                                                                                    \
     return (int)launch<N>(payload, ld, tile_start, tile_count, order, out, num_tiles, grid_x, \
-                          W, H, s);
+                          row0, W, H, s);
   switch (S) {
     MRGS_FWD_CASE(1)
     MRGS_FWD_CASE(2)

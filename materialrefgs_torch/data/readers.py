@@ -64,9 +64,11 @@ def _format(path: str) -> str:
 
 
 def read_image(path: str, device=None) -> np.ndarray:
-    """uint8 (H, W, C), C = 1 (gray), 3 or 4, as Pillow decodes the file:
-    PNG on the host, JPEG with its inverse DCT and colour conversion on
-    `device` (default: the card)."""
+    """np.asarray(Image.open(path)) with a channel axis, (H, W, C): a PNG in
+    its Pillow mode on the host (utils/png.read_png: palette indices for a
+    palette file, bool for 1-bit gray, uint16 for 16-bit gray), a JPEG as
+    uint8 gray or RGB with its inverse DCT and colour conversion on `device`
+    (default: the card)."""
     if _format(path) == "png":
         return png.read_png(path)
     arr = jpeg.decode_jpeg(path, device).cpu().numpy()
@@ -80,19 +82,20 @@ def image_size(path: str) -> tuple[int, int]:
 
 def load_image(info: CameraInfo, resolution_scale: int = 1, device=None) -> np.ndarray:
     """(H, W, 3) float32 in [0,1]; alpha composited over the background.
-    The file decodes as read_image does (a JPEG partly on `device`);
-    resolution_scale != 1 resizes the image in its own mode (RGBA
-    premultiplied) to (width // scale, height // scale) with Pillow's
-    LANCZOS, as the JAX package's Image.resize does."""
-    arr = read_image(info.image_path, device)
+    As the JAX package's `Image.open(p).resize(...).convert("RGBA")`: the
+    file decodes in its own mode (a JPEG partly on `device`), resolution_scale
+    != 1 resizes it in that mode to (width // scale, height // scale) with
+    Pillow's LANCZOS (palette and 1-bit images take NEAREST, RGBA and LA
+    are resized premultiplied), and then it converts to RGBA."""
+    if _format(info.image_path) == "png":
+        img = png.open_png(info.image_path)
+    else:
+        arr = read_image(info.image_path, device)
+        img = png.PngImage(arr[..., 0], "L") if arr.shape[-1] == 1 else png.PngImage(arr, "RGB")
     if resolution_scale != 1:
         size = (info.width // resolution_scale, info.height // resolution_scale)
-        arr = resample.resize(arr, size, resample.LANCZOS)
-    arr = arr.astype(np.float32) / 255.0
-    if arr.shape[-1] == 1:  # gray -> RGB, opaque
-        arr = np.repeat(arr, 3, axis=-1)
-    if arr.shape[-1] == 3:
-        return arr
+        img = png.resize(img, size, resample.LANCZOS)
+    arr = png.to_rgba(img).astype(np.float32) / 255.0
     bg = 1.0 if info.white_background else 0.0
     return arr[..., :3] * arr[..., 3:4] + bg * (1 - arr[..., 3:4])
 

@@ -264,21 +264,36 @@ def add_densification_stats(
     mean2d_grad: torch.Tensor,
     radii: torch.Tensor,
     ndc_scale: tuple[float, float] = (1.0, 1.0),
+    group=None,
 ) -> None:
     """gaussian_model.py:1059-1062: accumulate view-space gradient norms
     where the gaussian was visible (radii > 0).
 
     ndc_scale: (0.5*W, 0.5*H). The rasterizer's mean2D gradients are in pixel
     units; the reference scales them to NDC units (backward.cu:260-261)
-    before densify_grad_threshold=2e-4 applies, and so does this."""
+    before densify_grad_threshold=2e-4 applies, and so does this.
+
+    group (data parallelism, JAX gaussian_model.py:264-272): each rank gives
+    its own view's norms; the norms and the counts are summed over the
+    ranks, as that many sequential views would add them (the norm of the
+    averaged gradient would cancel opposing views), and max_radii2d takes
+    the largest over the ranks."""
     upd = (radii > 0) & model.alive
     g = mean2d_grad * torch.tensor(ndc_scale, dtype=mean2d_grad.dtype, device=mean2d_grad.device)
     gnorm = torch.sqrt(torch.sum(g * g, dim=-1))
-    model.xyz_gradient_accum.add_(torch.where(upd, gnorm, torch.zeros_like(gnorm)))
-    model.denom.add_(upd.to(torch.float32))
-    model.max_radii2d.copy_(
-        torch.where(upd, torch.maximum(model.max_radii2d, radii), model.max_radii2d)
-    )
+    accum = torch.where(upd, gnorm, torch.zeros_like(gnorm))
+    denom = upd.to(torch.float32)
+    max_r = torch.where(upd, torch.maximum(model.max_radii2d, radii), model.max_radii2d)
+    if group is not None:
+        import torch.distributed as dist
+
+        both = torch.stack([accum, denom])
+        dist.all_reduce(both, group=group)
+        accum, denom = both[0], both[1]
+        dist.all_reduce(max_r, op=dist.ReduceOp.MAX, group=group)
+    model.xyz_gradient_accum.add_(accum)
+    model.denom.add_(denom)
+    model.max_radii2d.copy_(max_r)
 
 
 @torch.no_grad()

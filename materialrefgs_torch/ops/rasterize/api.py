@@ -106,13 +106,13 @@ class _RenderPairs(torch.autograd.Function):
     """Pair gather + both tile kernels under one autograd boundary."""
 
     @staticmethod
-    def forward(ctx, payload_g, g_sorted, tile_start, tile_count, S, grid_x, grid_y, W, H):
+    def forward(ctx, payload_g, g_sorted, tile_start, tile_count, S, grid_x, grid_y, W, H, row0=0):
         pp = _gather_pairs(payload_g, g_sorted)
         out = rasterize_tiles_fwd(
-            pp, tile_start, tile_count, S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H
+            pp, tile_start, tile_count, S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0
         )
         ctx.save_for_backward(pp, g_sorted, tile_start, tile_count, out)
-        ctx.dims = (S, grid_x, grid_y, W, H, payload_g.shape[1])
+        ctx.dims = (S, grid_x, grid_y, W, H, row0, payload_g.shape[1])
         return out
 
     @staticmethod
@@ -125,18 +125,18 @@ class _RenderPairs(torch.autograd.Function):
                 "backward kernel is not itself differentiable)"
             )
         pp, g_sorted, tile_start, tile_count, fwd_out = ctx.saved_tensors
-        S, grid_x, grid_y, W, H, P = ctx.dims
+        S, grid_x, grid_y, W, H, row0, P = ctx.dims
         n_contrib = fwd_out[..., out_layout(S)["n_contrib"][0]]  # (T, 256)
         tile_active = torch.amax(n_contrib, dim=1).to(torch.int32)
         dpair = rasterize_tiles_bwd(
             pp, tile_start, tile_count, tile_active, fwd_out, g.contiguous(),
-            S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H,
+            S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0,
         )
         acc = torch.zeros((P, grad_rows(S)), dtype=dpair.dtype, device=dpair.device)
         acc.index_add_(0, g_sorted.to(torch.int64), dpair)
         # (C_PAD, P): the row_gid row and the padding rows carry no gradient.
         dpg = torch.nn.functional.pad(acc, (0, pp.shape[0] - grad_rows(S))).T
-        return dpg, None, None, None, None, None, None, None, None
+        return dpg, None, None, None, None, None, None, None, None, None
 
 
 class _SortedInputs(NamedTuple):
@@ -148,13 +148,22 @@ class _SortedInputs(NamedTuple):
     grid_y: int
     W: int
     H: int
+    row0: int  # the grid's first tile row in the view
 
 
 def _sorted_inputs(
     means3d, scales, rotations, opacities, colors, features, camera: Camera,
     scale_modifier: float, config: RasterizeConfig, mean2d_offset=None,
+    rows: tuple[int, int] | None = None,
 ) -> _SortedInputs:
-    """Steps 1-3 of the pipeline and the per-gaussian payload."""
+    """Steps 1-3 of the pipeline and the per-gaussian payload.
+
+    rows (row0, rows_local): bin and render only the tile rows [row0,
+    row0 + rows_local) of the view (a block of the tile-sharded render,
+    parallel/tile_sharding.py): the rects are clipped to the block and count
+    from its first row, and the keep mask and the tile kernels take row0, so
+    every pixel keeps the view's own coordinates and the block's maps are
+    bit for bit the whole view's."""
     H, W = camera.height, camera.width
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE
@@ -172,9 +181,21 @@ def _sorted_inputs(
         T = pre.T_rows
         T = torch.stack([T[:, 0, :] + dx * T[:, 2, :], T[:, 1, :] + dy * T[:, 2, :], T[:, 2, :]], dim=1)
         pre = pre._replace(mean2d=pre.mean2d + mean2d_offset, T_rows=T)
+    valid = pre.valid
+    row0 = 0
+    if rows is not None:
+        row0, grid_y = rows
+        lo = pre.rect_min.clone()
+        hi = pre.rect_max.clone()
+        lo[:, 1] = torch.clamp(lo[:, 1] - row0, 0, grid_y)
+        hi[:, 1] = torch.clamp(hi[:, 1] - row0, 0, grid_y)
+        nxy = torch.clamp(hi - lo, min=0)
+        tiles = (nxy[:, 0] * nxy[:, 1]).to(pre.tiles_touched.dtype)
+        valid = valid & (tiles > 0)
+        pre = pre._replace(rect_min=lo, rect_max=hi, tiles_touched=tiles)
     # Gaussians with opacity < 1/255 can never pass the per-pixel alpha test
     # (forward.cu:397); cull them so dead fixed-capacity slots cost no pairs.
-    valid = pre.valid & (opacities >= (1.0 / 255.0))
+    valid = valid & (opacities >= (1.0 / 255.0))
     pre = pre._replace(
         valid=valid,
         tiles_touched=torch.where(valid, pre.tiles_touched, torch.zeros_like(pre.tiles_touched)),
@@ -191,9 +212,9 @@ def _sorted_inputs(
 
     pre_s = PreprocessOut(*(sort_by_depth(a) for a in pre))
     opac_s = sort_by_depth(opacities)
-    bins = binning.bin_pairs(pre_s, grid_x, grid_y, config.pair_capacity, opacities=opac_s)
+    bins = binning.bin_pairs(pre_s, grid_x, grid_y, config.pair_capacity, opacities=opac_s, row0=row0)
     payload_g = _build_payload(pre_s, opac_s, sort_by_depth(colors), sort_by_depth(features), S)
-    return _SortedInputs(payload_g, bins, pre, S, grid_x, grid_y, W, H)
+    return _SortedInputs(payload_g, bins, pre, S, grid_x, grid_y, W, H, row0)
 
 
 def tile_inputs(
@@ -211,7 +232,15 @@ def tile_inputs(
     si = _sorted_inputs(
         means3d, scales, rotations, opacities, colors, features, camera, scale_modifier, config
     )
-    return TileInputs(_gather_pairs(si.payload_g, si.bins.g_sorted), *si[1:])
+    return TileInputs(_gather_pairs(si.payload_g, si.bins.g_sorted), *si[1:-1])
+
+
+def _render(si: _SortedInputs) -> torch.Tensor:
+    """Step 4: (grid_y * grid_x, 256, C_OUT) tile outputs."""
+    return _RenderPairs.apply(
+        si.payload_g, si.bins.g_sorted, si.bins.tile_start, si.bins.tile_count,
+        si.S, si.grid_x, si.grid_y, si.W, si.H, si.row0,
+    )
 
 
 def _unpack(tiles_out, S, grid_x, grid_y, W, H, bg_color):
@@ -267,11 +296,7 @@ def rasterize(
         means3d, scales, rotations, opacities, colors, features, camera,
         scale_modifier, config, mean2d_offset,
     )
-    tiles_out = _RenderPairs.apply(
-        si.payload_g, si.bins.g_sorted, si.bins.tile_start, si.bins.tile_count,
-        si.S, si.grid_x, si.grid_y, si.W, si.H,
-    )
-    out = _unpack(tiles_out, si.S, si.grid_x, si.grid_y, si.W, si.H, bg_color)
+    out = _unpack(_render(si), si.S, si.grid_x, si.grid_y, si.W, si.H, bg_color)
     out["radii"] = si.pre.radius
     out["mean2d"] = si.pre.mean2d
     out["overflow"] = si.bins.overflow

@@ -75,7 +75,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
-def tile_keep_mask(pre: PreprocessOut, opacities: torch.Tensor):
+def tile_keep_mask(pre: PreprocessOut, opacities: torch.Tensor, row0: int = 0):
     """Exact, output-neutral per-tile culling masks (one bit per rect tile).
 
     A (gaussian, tile) pair is dropped only if the per-pixel test
@@ -87,7 +87,8 @@ def tile_keep_mask(pre: PreprocessOut, opacities: torch.Tensor):
     rho2d <= R of mean2d.
 
     Returns (mask0, mask1, use_mask, tiles_kept), all (P,). Gaussians whose
-    rect exceeds MASK_W^2 keep every tile (use_mask=False)."""
+    rect exceeds MASK_W^2 keep every tile (use_mask=False). The rects' tile
+    rows count from the view's tile row row0 (a tile-sharded block)."""
     dev = opacities.device
     rmx = pre.rect_min[:, 0].to(torch.int32)
     rmy = pre.rect_min[:, 1].to(torch.int32)
@@ -154,7 +155,7 @@ def tile_keep_mask(pre: PreprocessOut, opacities: torch.Tensor):
     iy = torch.div(i, wg, rounding_mode="floor")
     in_rect = i < (w * h)[:, None]
     x0 = ((rmx[:, None] + ix) * TILE).to(torch.float32)
-    y0 = ((rmy[:, None] + iy) * TILE).to(torch.float32)
+    y0 = ((rmy[:, None] + iy + row0) * TILE).to(torch.float32)
     x1 = x0 + (TILE - 1)
     y1 = y0 + (TILE - 1)
 
@@ -229,11 +230,13 @@ def bin_pairs(
     grid_y: int,
     pair_capacity: int,
     opacities: torch.Tensor | None = None,
+    row0: int = 0,
 ) -> BinningOut:
     """`pre` must already be depth-sorted (see api.rasterize).
 
     With `opacities`, tight per-tile culling (tile_keep_mask) runs first and
-    culled tiles never consume pair slots."""
+    culled tiles never consume pair slots. row0: the grid's first tile row in
+    the view (a tile-sharded block; its rects count from it)."""
     num_tiles = grid_x * grid_y
     K = K_CHUNK
     if pair_capacity % K:
@@ -243,7 +246,7 @@ def bin_pairs(
     dev = pre.depth.device
     counts_g = pre.tiles_touched.to(torch.int32)  # (P,)
     if opacities is not None:
-        mask0, mask1, use_mask, tiles_kept = tile_keep_mask(pre, opacities)
+        mask0, mask1, use_mask, tiles_kept = tile_keep_mask(pre, opacities, row0)
         counts_g = torch.minimum(counts_g, tiles_kept.to(torch.int32))
     cum64 = torch.cumsum(counts_g, dim=0, dtype=torch.int64)
     # A pair total past int32 (pathological scenes: millions of splats x

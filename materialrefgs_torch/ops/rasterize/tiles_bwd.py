@@ -71,6 +71,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,  # S
         ctypes.c_int,  # grid_x
         ctypes.c_int,  # grid_y
+        ctypes.c_int,  # row0 (the grid's first tile row in the view)
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -107,16 +108,17 @@ def rasterize_tiles_bwd(
     grid_y: int,
     W: int,
     H: int,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Per-pair payload gradients (n_cols, 12+S+6). Launches the CUDA kernel
     for CUDA tensors and counts the launch in `rasterize_tiles_bwd.launches`;
-    runs the plain version for CPU tensors."""
+    runs the plain version for CPU tensors. row0 as in rasterize_tiles_fwd."""
     num_tiles = grid_x * grid_y
     _check_bwd_inputs(payload, tile_start, tile_count, tile_active, fwd_out, cotangent, S, num_tiles)
     if payload.device.type == "cpu":
         return rasterize_tiles_bwd_plain(
             payload, tile_start, tile_count, tile_active, fwd_out, cotangent,
-            S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H,
+            S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0,
         )
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
@@ -136,7 +138,7 @@ def rasterize_tiles_bwd(
     err = _library().rasterize_tiles_bwd(
         payload.data_ptr(), payload.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
         tile_active.data_ptr(), order.data_ptr(), fwd_out.data_ptr(), cotangent.data_ptr(),
-        dpair.data_ptr(), S, grid_x, grid_y, stream,
+        dpair.data_ptr(), S, grid_x, grid_y, row0, stream,
     )
     if err != 0:
         raise RuntimeError(f"rasterize_tiles_bwd kernel launch failed with CUDA error {err}")
@@ -160,6 +162,7 @@ def rasterize_tiles_bwd_plain(
     grid_y: int,
     W: int,
     H: int,
+    row0: int = 0,
     work: dict | None = None,
     tile_order: torch.Tensor | None = None,
 ) -> torch.Tensor:
@@ -191,7 +194,7 @@ def rasterize_tiles_bwd_plain(
     t = order[:, None]
     pid = torch.arange(PIX, device=dev)[None, :]
     pix_x = ((t % grid_x) * TILE + pid % TILE).to(torch.float32)
-    pix_y = (torch.div(t, grid_x, rounding_mode="floor") * TILE
+    pix_y = ((torch.div(t, grid_x, rounding_mode="floor") + row0) * TILE
              + torch.div(pid, TILE, rounding_mode="floor")).to(torch.float32)
 
     fwd_out, cotangent = fwd_out[order], cotangent[order]

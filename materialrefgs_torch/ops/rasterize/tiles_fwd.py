@@ -65,6 +65,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,  # S
         ctypes.c_int,  # grid_x
         ctypes.c_int,  # grid_y
+        ctypes.c_int,  # row0 (the grid's first tile row in the view)
         ctypes.c_int,  # W
         ctypes.c_int,  # H
         ctypes.c_void_p,  # stream
@@ -123,15 +124,18 @@ def rasterize_tiles_fwd(
     grid_y: int,
     W: int,
     H: int,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Per-tile forward outputs (T, 256, C_OUT). Launches the CUDA kernel for
     CUDA tensors and counts the launch in `rasterize_tiles_fwd.launches`;
-    runs the plain version for CPU tensors."""
+    runs the plain version for CPU tensors. The grid's tile rows are the
+    view's rows row0 .. row0 + grid_y - 1 (a block of a tile-sharded view,
+    parallel/tile_sharding.py; H stays the view's height)."""
     num_tiles = grid_x * grid_y
     _check_inputs(payload, tile_start, tile_count, S, num_tiles)
     if payload.device.type == "cpu":
         return rasterize_tiles_fwd_plain(
-            payload, tile_start, tile_count, S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H
+            payload, tile_start, tile_count, S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0
         )
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
@@ -151,7 +155,7 @@ def rasterize_tiles_fwd(
     stream = torch.cuda.current_stream(payload.device).cuda_stream
     err = _library().rasterize_tiles_fwd(
         payload.data_ptr(), payload.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-        order.data_ptr(), out.data_ptr(), S, grid_x, grid_y, W, H, stream,
+        order.data_ptr(), out.data_ptr(), S, grid_x, grid_y, row0, W, H, stream,
     )
     if err != 0:
         raise RuntimeError(f"rasterize_tiles_fwd kernel launch failed with CUDA error {err}")
@@ -172,6 +176,7 @@ def rasterize_tiles_fwd_plain(
     grid_y: int,
     W: int,
     H: int,
+    row0: int = 0,
     tile_order: torch.Tensor | None = None,
     prefilter: bool = True,
 ) -> torch.Tensor:
@@ -192,7 +197,7 @@ def rasterize_tiles_fwd_plain(
     t = order[:, None]
     pid = torch.arange(PIX, device=dev)[None, :]
     px_i = (t % grid_x) * TILE + pid % TILE
-    py_i = torch.div(t, grid_x, rounding_mode="floor") * TILE + torch.div(pid, TILE, rounding_mode="floor")
+    py_i = (torch.div(t, grid_x, rounding_mode="floor") + row0) * TILE + torch.div(pid, TILE, rounding_mode="floor")
     pix_x = px_i.to(torch.float32)
     pix_y = py_i.to(torch.float32)
     inside = (px_i < W) & (py_i < H)

@@ -47,6 +47,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from materialrefgs_torch.cameras import Camera, gen_virtual_cam
 from materialrefgs_torch.config import OptimizationParams, PipelineParams
@@ -206,6 +207,7 @@ class TrainStep:
         with_warp: bool = False,
         lpips_weights: dict | None = None,
         detect_anomaly: bool = False,
+        group=None,
     ):
         if stage not in STAGES:
             raise _volume_slice()
@@ -216,6 +218,9 @@ class TrainStep:
         # shading is the indirect term (trainer.py:215-222).
         self.residual = stage == "surfel2" and pipe.indirect_type == "raytracing_residual"
         self.detect_anomaly = detect_anomaly
+        # Camera-batch data parallelism (parallel/data_parallel.py): the
+        # torch.distributed group whose ranks each render their own view.
+        self.group = group
         self.with_warp = with_warp and stage in ("surfel", "surfel2")
         self.tracer_cfg = tracer_cfg
         # The perceptual loss applies to the deferred stages (trainer.py:252).
@@ -371,16 +376,10 @@ class TrainStep:
         env_names = list(env_params)
         leaves += [env_params[k] for k in env_names]
         grads = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
+        # The screen-offset gradient stays this view's own: the densification
+        # statistics sum each view's norm (add_densification_stats).
         goff = grads[-1] if grads[-1] is not None else torch.zeros_like(offset)
         anomaly = self._nonfinite_counts(loss, names, env_names, grads) if self.detect_anomaly else {}
-        lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
-        state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
-        gm.add_densification_stats(
-            model, goff, pkg["radii"].detach(),
-            ndc_scale=(0.5 * camera.width, 0.5 * camera.height),
-        )
-        state.step += 1
-
         metrics = {k: v.detach() for k, v in tb.items()}
         metrics["loss"] = loss.detach()
         metrics["overflow"] = pkg["overflow"]
@@ -392,6 +391,20 @@ class TrainStep:
             metrics["tracer_pairs"] = 0
             metrics["mesh_cull_dropped"] = int(pkg.get("mesh_cull_dropped", 0))
         elif self.stage == "surfel2":
+            metrics["tracer_overflow"] = int(pkg["tracer_overflow"])
+            metrics["tracer_pairs"] = int(pkg["tracer_pairs"])
+            metrics["mesh_cull_dropped"] = int(pkg["mesh_cull_dropped"])
+        if self.group is not None:
+            grads = self._all_reduce(grads[:-1], leaves, metrics) + (goff,)
+        lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
+        state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
+        gm.add_densification_stats(
+            model, goff, pkg["radii"].detach(),
+            ndc_scale=(0.5 * camera.width, 0.5 * camera.height), group=self.group,
+        )
+        state.step += 1
+
+        if self.stage == "surfel2" and not self.residual:
             # The env-GS model's own Adam. Its learning rates read the step
             # after the increment (trainer.py:461), without the opacity-LR
             # toggle; freeze_geo scales xyz and scaling, not rotation
@@ -402,11 +415,9 @@ class TrainStep:
             elrs["xyz"] *= fz
             elrs["scaling"] *= fz
             state.env_adam.step(env_params, egrads, elrs)
+            # Under data parallelism gx is the averaged gradient (trainer.py:471-475).
             gx = egrads["xyz"] if egrads["xyz"] is not None else torch.zeros_like(env_params["xyz"])
             gm.add_env_stats(state.env_gs, gx)
-            metrics["tracer_overflow"] = int(pkg["tracer_overflow"])
-            metrics["tracer_pairs"] = int(pkg["tracer_pairs"])
-            metrics["mesh_cull_dropped"] = int(pkg["mesh_cull_dropped"])
             # The largest env-GS gradients this step (zero: the trace gave
             # the env cloud no learning signal).
             for name, keys in (("xyz", ("xyz",)), ("opacity", ("opacity",)),
@@ -414,6 +425,46 @@ class TrainStep:
                 metrics[f"env_grad_{name}"] = max(
                     float(egrads[k].abs().max()) if egrads[k] is not None else 0.0 for k in keys)
         return metrics
+
+    # Metrics summed over the ranks; every other metric is averaged.
+    SUMMED = ("overflow", "nearest_overflow", "tracer_overflow", "tracer_pairs", "mesh_cull_dropped")
+
+    def _all_reduce(self, grads, leaves, metrics: dict) -> tuple:
+        """Average the gradients (None: zeros, so that every rank reduces the
+        same layout), the loss and every float metric over the group in one
+        all_reduce, as jax.lax.pmean does (trainer.py:406-420); sum the
+        counts (and --detect_anomaly's nonfinite counts) in a second one.
+        Rewrites `metrics` in place, adds the first all_reduce's bytes and
+        milliseconds (dp_allreduce_bytes, dp_allreduce_ms) and returns the
+        averaged gradients."""
+        world = dist.get_world_size(self.group)
+        counts = [k for k in metrics if k in self.SUMMED or k.startswith("nonfinite/")]
+        means = [k for k in metrics if k not in counts and not k.startswith("gradmax/")]
+        flat = torch.cat([(g if g is not None else torch.zeros_like(a)).reshape(-1) for g, a in zip(grads, leaves)]
+                         + [torch.as_tensor(metrics[k], dtype=torch.float32, device=leaves[0].device).reshape(1)
+                            for k in means])
+        ints = torch.tensor([int(metrics[k]) for k in counts], dtype=torch.int64, device=flat.device)
+        if flat.is_cuda:
+            torch.cuda.synchronize(flat.device)
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=self.group)
+        if flat.is_cuda:
+            torch.cuda.synchronize(flat.device)
+        reduce_ms = (time.perf_counter() - t0) * 1e3
+        flat.div_(world)
+        dist.all_reduce(ints, group=self.group)
+        out, pos = [], 0
+        for a in leaves:
+            out.append(flat[pos : pos + a.numel()].view_as(a))
+            pos += a.numel()
+        for k, v in zip(means, flat[pos:]):
+            metrics[k] = v
+        for k, v in zip(counts, ints.tolist()):
+            metrics[k] = v
+        # The gradient all_reduce's size and host-clock time (synchronised).
+        metrics["dp_allreduce_bytes"] = flat.numel() * flat.element_size()
+        metrics["dp_allreduce_ms"] = reduce_ms
+        return tuple(out)
 
     @staticmethod
     def _nonfinite_counts(loss, names, env_names, grads) -> dict:
@@ -455,14 +506,17 @@ def make_train_step(
     with_warp: bool = False,
     lpips_weights: dict | None = None,
     detect_anomaly: bool = False,
+    group=None,
 ) -> TrainStep:
     """The step of `initial`, `surfel` or `surfel2`: step(state, camera, gt,
     extra, mesh=None) -> metrics (see TrainStep). lpips_weights
     (train/lpips.load_weights) turns the perceptual term on; detect_anomaly
-    adds the nonfinite/ and gradmax/ counts of each gradient group."""
+    adds the nonfinite/ and gradmax/ counts of each gradient group; `group`
+    (a torch.distributed group) averages the gradients and metrics over its
+    ranks (parallel/data_parallel.py)."""
     return TrainStep(stage, opt, pipe, spatial_lr_scale, raster_cfg, envmap_n_samples,
                      env_min_roughness, env_max_roughness, tracer_cfg, with_warp, lpips_weights,
-                     detect_anomaly)
+                     detect_anomaly, group)
 
 
 class Trainer:
@@ -519,6 +573,8 @@ class Trainer:
         tracer_cfg: TracerConfig = TracerConfig(),
         mesh_dir: str | None = None,  # periodic TSDF mesh artifacts
         mesh_every: int = 2000,
+        vis_dir: str | None = None,  # save_training_vis output dir
+        vis_every: int = 1000,
         use_mesh_visibility: bool = True,  # mesh-traced specular occlusion
         virtual_cam_trans_noise: float = 1.5,  # ModelParams.multi_view_max_dis
         virtual_cam_deg_noise: float = 30.0,  # ModelParams.multi_view_max_angle
@@ -590,6 +646,8 @@ class Trainer:
         self._tracer_presized = False
         self.mesh_dir = mesh_dir
         self.mesh_every = mesh_every
+        self.vis_dir = vis_dir
+        self.vis_every = vis_every
         self.use_mesh_visibility = use_mesh_visibility
         self.mesh = None  # ops.mesh_tracer.MeshData for the traced visibility
         # (iteration, triangles, seconds) of each mesh extraction.
@@ -667,9 +725,10 @@ class Trainer:
         nid = int(self.nearest_ids[cam_id][self.rng.integers(len(self.nearest_ids[cam_id]))])
         return True, self.cameras[nid], self.images[nid], 1.0, nid
 
-    def _run_step(self, iteration: int, stage: str) -> dict:
-        cam_id = self._pick_view()
-        self._last_cam_id = cam_id
+    def _view_extra(self, iteration: int, stage: str, cam_id: int) -> tuple[dict, bool, int]:
+        """(the step's extra for view cam_id, warp_on, nearest id): the
+        warp's neighbour or virtual camera and its uniforms, drawn from the
+        Trainer's rng and generator."""
         extra = self._build_extra(iteration, cam_id)
         cam = self.cameras[cam_id]
         warp_on, near_cam, near_gt, photo_w, near_id = self._select_warp(iteration, stage, cam_id)
@@ -677,6 +736,22 @@ class Trainer:
             uniforms = torch.rand(cam.height * cam.width, generator=self.generator, device=cam.device)
             extra.update(nearest_camera=near_cam, nearest_gt=near_gt, warp_photo_weight=photo_w,
                          warp_uniforms=uniforms)
+        return extra, warp_on, near_id
+
+    def _agree(self, counts: dict) -> dict:
+        """The render's drop counts as every rank of the step sees them (one
+        process: its own)."""
+        return counts
+
+    def _run_step(self, iteration: int, stage: str) -> dict:
+        cam_id = self._pick_view()
+        self._last_cam_id = cam_id
+        extra, warp_on, near_id = self._view_extra(iteration, stage, cam_id)
+        return self._render_and_update(iteration, stage, cam_id, extra, warp_on, near_id)
+
+    def _render_and_update(self, iteration: int, stage: str, cam_id: int, extra: dict, warp_on: bool,
+                           near_id: int) -> dict:
+        cam = self.cameras[cam_id]
         mesh = self.mesh if stage == "surfel2" else None
         rendered = self._step_fn(stage, warp_on).render(self.state, cam, extra, mesh)
         dropped, tracer_dropped, renders = 0, 0, 0
@@ -687,15 +762,21 @@ class Trainer:
             overflow = int(pkg["overflow"])
             if warp_on:
                 overflow = max(overflow, int(pkg["nearest_pkg"]["overflow"]))
-            tracer_overflow = int(pkg.get("tracer_overflow", 0))
-            cull_dropped = int(pkg.get("mesh_cull_dropped", 0))
+            counts = self._agree({
+                "overflow": overflow,
+                "tracer_overflow": int(pkg.get("tracer_overflow", 0)),
+                "mesh_cull_dropped": int(pkg.get("mesh_cull_dropped", 0)),
+                "tracer_pair_slots": int(pkg.get("tracer_pair_slots", 0)),
+                "tracer_cluster_pairs": int(pkg.get("tracer_cluster_pairs", 0)),
+            })
+            overflow, tracer_overflow = counts["overflow"], counts["tracer_overflow"]
             raised = False
             if overflow:
                 raised |= self._escalate_pair_capacity(overflow, iteration)
             if tracer_overflow:
-                raised |= self._escalate_tracer_capacity(pkg, iteration)
-            if cull_dropped:
-                raised |= self._escalate_mesh_cull_cap(cull_dropped, iteration)
+                raised |= self._escalate_tracer_capacity(counts, iteration)
+            if counts["mesh_cull_dropped"]:
+                raised |= self._escalate_mesh_cull_cap(counts["mesh_cull_dropped"], iteration)
             if not raised:
                 break
             dropped, tracer_dropped, renders = dropped + overflow, tracer_dropped + tracer_overflow, renders + 1
@@ -760,6 +841,9 @@ class Trainer:
                 self._extract_mesh(iteration)
             self._densify_and_reset(iteration, stage)
 
+            if self.vis_dir and iteration % self.vis_every == 0:
+                self._save_vis(iteration, self._last_cam_id, stage)
+
             if iteration % log_every == 0 or iteration == start_iter:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["iteration"] = iteration
@@ -793,6 +877,30 @@ class Trainer:
         """A `surfel` render for the probe and the mesh (no gradient)."""
         ropts = RenderOptions(unbiased_depth=self.pipe.unbiased_depth, raster=self.raster_cfg)
         return render_surfel(self.state.model, self.cameras[cam_id], self.bg, mips, ropts)
+
+    def _save_vis(self, iteration: int, cam_id: int, stage: str):
+        """save_training_vis (train_refnerf.py:1533; JAX trainer.py:1321-1340):
+        {vis_dir}/{iteration:06d}.png, a grid of the view's GT, render and
+        normal over its depth, albedo and (roughness, reflection strength,
+        0); nothing in `initial`."""
+        import os
+
+        from materialrefgs_torch.evaluate import _numpy, depth_vis, save_png
+
+        if stage == "initial":
+            return
+        pkg = self._render_view(cam_id, self._build_mips(self.state.env1))
+        gt = _numpy(self.images[cam_id])
+        render = np.clip(_numpy(pkg["render"]), 0, 1)
+        normal = _numpy(pkg["rend_normal"]) * 0.5 + 0.5
+        depth = depth_vis(pkg["surf_depth"])[..., None].repeat(3, -1)
+        albedo = np.clip(_numpy(pkg["base_color_map"]), 0, 1)
+        rough = _numpy(pkg["roughness_map"])[..., :1]
+        refl = _numpy(pkg["refl_strength_map"])[..., :1]
+        top = np.concatenate([gt, render, normal], axis=1)
+        bot = np.concatenate([depth, albedo, np.clip(np.concatenate([rough, refl, rough * 0], -1), 0, 1)], axis=1)
+        os.makedirs(self.vis_dir, exist_ok=True)
+        save_png(os.path.join(self.vis_dir, f"{iteration:06d}.png"), np.concatenate([top, bot], axis=0))
 
     @torch.no_grad()
     def mine_ref_scores(self, threshold: float = 0.5):
@@ -902,7 +1010,8 @@ class Trainer:
 
     def _escalate_tracer_capacity(self, pkg: dict, iteration: int) -> bool:
         """Raise the tracer's budgets to what the render reported it needed
-        (fit_tracer_budgets), bounded by the ceiling. Returns False when
+        (fit_tracer_budgets on its tracer_pair_slots, tracer_cluster_pairs
+        and tracer_overflow), bounded by the ceiling. Returns False when
         nothing could be raised."""
         cfg = self.tracer_cfg
         new = fit_tracer_budgets(cfg, pkg)

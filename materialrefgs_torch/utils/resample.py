@@ -50,10 +50,12 @@ def _lanczos(x: float) -> float:
 _FILTERS = {BILINEAR: (_bilinear, 1.0), LANCZOS: (_lanczos, 3.0)}
 
 
-def _coeffs(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.ndarray]:
+def _coeffs(in_size: int, out_size: int, method: str, bpc16: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """precompute_coeffs + normalize_coeffs_8bpc: (first input index per
     output sample (out,), integer weights (out, ksize)) in Pillow's double
-    arithmetic (math.sin is the C library's, as Pillow's)."""
+    arithmetic (math.sin is the C library's, as Pillow's). bpc16: the
+    normalized double weights themselves (zero past each sample's support),
+    which the 16-bit passes use."""
     fn, support = _FILTERS[method]
     filterscale = scale = float(in_size) / out_size
     if filterscale < 1.0:
@@ -61,7 +63,7 @@ def _coeffs(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.nd
     support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     xmins = np.zeros(out_size, np.int64)
-    kk = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64 if bpc16 else np.int64)
     ss = 1.0 / filterscale
     one = float(1 << PRECISION_BITS)
     for xx in range(out_size):
@@ -72,7 +74,10 @@ def _coeffs(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.nd
         ww = _sum_in_order(w)
         if ww != 0.0:
             w = [v / ww for v in w]
-        kk[xx, :xmax] = [int(-0.5 + v * one) if v < 0 else int(0.5 + v * one) for v in w]
+        if bpc16:
+            kk[xx, :xmax] = w
+        else:
+            kk[xx, :xmax] = [int(-0.5 + v * one) if v < 0 else int(0.5 + v * one) for v in w]
         xmins[xx] = xmin
     return xmins, kk
 
@@ -113,6 +118,40 @@ def _pass(img: torch.Tensor, axis: int, out_size: int, method: str, block: int =
     return acc.reshape(*lead, out_size).movedim(-1, axis)
 
 
+def _pass_16bpc(img: np.ndarray, axis: int, out_size: int, method: str) -> np.ndarray:
+    """ImagingResample{Horizontal,Vertical}_16bpc over `axis` of an (H, W)
+    uint16 image: each output is the double sum, left to right, of sample x
+    weight, rounded half away from zero; its low byte and its value >> 8 are
+    each clipped to 0-255 (so a sum past 65535 keeps its low byte under a
+    high byte of 255, and a negative one gives 0)."""
+    in_size = img.shape[axis]
+    xmins, kk = _coeffs(in_size, out_size, method, bpc16=True)
+    src = np.moveaxis(img, axis, -1).astype(np.float64)
+    idx = np.minimum(xmins[:, None] + np.arange(kk.shape[1])[None], in_size - 1)  # (out, ksize)
+    ss = np.zeros(src.shape[:-1] + (out_size,), np.float64)
+    for x in range(kk.shape[1]):
+        # Past a sample's support the weight is 0 and the clamped index is
+        # any valid one: ss + v * 0.0 leaves ss as it is.
+        ss = ss + src[..., idx[:, x]] * kk[:, x]
+    si = np.where(ss >= 0.0, ss + 0.5, ss - 0.5).astype(np.int64)  # C's (int) truncates
+    lo = np.clip(np.fmod(si, 256), 0, 255)
+    hi = np.clip(si >> 8, 0, 255)
+    return np.moveaxis((lo | (hi << 8)).astype(np.uint16), -1, axis)
+
+
+def resize_16bpc(img: np.ndarray, size: tuple[int, int], method: str) -> np.ndarray:
+    """Pillow's resize of an "I;16" image, (H, W) uint16, with BILINEAR or
+    LANCZOS: a horizontal 16-bit pass, then a vertical one."""
+    out_w, out_h = int(size[0]), int(size[1])
+    H, W = img.shape
+    x = np.asarray(img, np.uint16)
+    if out_w != W:
+        x = _pass_16bpc(x, 1, out_w, method)
+    if out_h != H:
+        x = _pass_16bpc(x, 0, out_h, method)
+    return x
+
+
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     scale = float(in_size) / out_size
     return np.array([int(scale * (x + 0.5)) for x in range(out_size)], np.int64)
@@ -137,10 +176,11 @@ def _unpremultiply(img: torch.Tensor) -> torch.Tensor:
 def resize(img: np.ndarray, size: tuple[int, int], method: str) -> np.ndarray:
     """Pillow's `Image.fromarray(img).resize(size, method)` for a uint8
     (H, W) or (H, W, C) array (C = 1, 2 LA, 3 RGB or 4 RGBA); size is
-    (width, height), as Pillow takes it."""
+    (width, height), as Pillow takes it. NEAREST takes any dtype (a mode "1"
+    bool image, "I;16", palette indices)."""
     arr = np.asarray(img)
-    if arr.dtype != np.uint8:
-        raise ValueError(f"resize takes uint8 images, got {arr.dtype}")
+    if arr.dtype != np.uint8 and method != NEAREST:
+        raise ValueError(f"resize filters uint8 images, got {arr.dtype}")
     squeeze = arr.ndim == 2
     if squeeze:
         arr = arr[..., None]

@@ -35,8 +35,19 @@ PipelineParams pick the flavor: --use_asg (ASG indirect lobes) and
 no env-GS model). --detect_anomaly checks the loss and every gradient group
 for nonfinite values each step and stops with the groups named;
 --deadline_min N saves a checkpoint and the PLYs at the first save, test or
-checkpoint mark past N minutes and stops there. --dp raises
-NotImplementedError (the parallel slice of the port).
+checkpoint mark past N minutes and stops there.
+
+--dp N trains with camera-batch data parallelism over N ranks, one view and
+one device each (parallel/dp_trainer.py), the gradients averaged in an
+all_reduce: over NCCL on N cards (rank r on cuda:r), or over gloo with
+--device cpu. Outside a launcher it starts the N ranks itself
+(torch.multiprocessing, start method spawn); under torchrun (RANK and
+WORLD_SIZE set) each process is one rank of the launcher's group, whose size
+must be N. Fewer than N cards on the host raise. Only rank 0 writes
+(checkpoints, PLYs, meshes, visualisations, train_log.json, psnr.json, the
+test renders); every rank loads a --start_checkpoint. Rank 0 logs the test
+PSNR to psnr.json (continued across resumes) and TensorBoard scalars when
+torch.utils.tensorboard imports.
 """
 import argparse
 import dataclasses
@@ -109,6 +120,43 @@ def load_ref_score_masks(ref_score_path, train_infos, device=None):
 
 
 def main(argv=None) -> dict:
+    """Parse the flags and train; with --dp, as one rank of a torchrun group,
+    in this process at --dp 1, or by spawning the N ranks (the returned dict
+    is then {"dp": N})."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    if not args.dp:
+        return _train(args)
+    import torch
+
+    from materialrefgs_torch import resolve_device
+    from materialrefgs_torch.parallel import multihost
+
+    resolve_device(args.device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != args.dp:
+            raise SystemExit(f"--dp {args.dp} but the launcher's group has WORLD_SIZE {world}")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if args.device == "cuda" and torch.cuda.device_count() < local:
+            raise SystemExit(f"--dp {args.dp}: {local} ranks on this host but only "
+                             f"{torch.cuda.device_count()} CUDA cards visible")
+        return _train(args, int(os.environ["RANK"]), world)
+    if args.device == "cuda" and torch.cuda.device_count() < args.dp:
+        raise SystemExit(f"--dp {args.dp} but only {torch.cuda.device_count()} CUDA cards visible "
+                         "(on the CPU: --device cpu)")
+    if args.dp == 1:
+        return _train(args, 0, 1, f"localhost:{multihost.free_port()}")
+    multihost.spawn(os.path.abspath(__file__), "_train_rank", argv, args.dp)
+    return {"dp": args.dp}
+
+
+def _train_rank(argv, rank: int, world: int, coordinator: str):
+    """One spawned rank of --dp N."""
+    _train(_parse(argv), rank, world, coordinator)
+
+
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("-s", "--source_path", required=True)
     ap.add_argument("-m", "--model_path", required=True)
@@ -153,7 +201,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ref_score_path", default=None,
                     help="dir of reflection-score PNGs (last channel > 128), or 'auto' to mine "
                          "them in-process at ref_score_start_iter")
-    ap.add_argument("--dp", type=int, default=0)
+    ap.add_argument("--dp", type=int, default=0,
+                    help="camera-batch data parallelism over N ranks (NCCL on N cards, gloo with --device cpu)")
     ap.add_argument("--deadline_min", type=float, default=0,
                     help="wall-clock budget in minutes: at the first mark past it, save a checkpoint, "
                          "the PLYs and the log, and stop cleanly at that iteration boundary")
@@ -169,12 +218,17 @@ def main(argv=None) -> dict:
 
     cfg.add_param_flags(ap)
     args = ap.parse_args(argv)
-    if args.dp:
-        raise NotImplementedError("--dp (camera-batch data parallelism) comes with the parallel slice of the port")
     if args.mesh_every is None:
         # The mesh cadence is a curriculum literal (train_refnerf.py:1459):
         # it compresses with the schedule.
         args.mesh_every = max(1, round(2000 * args.schedule_scale))
+    return args
+
+
+def _train(args, rank: int = 0, world: int = 1, coordinator: str | None = None) -> dict:
+    """The run; with --dp, rank `rank` of `world` (joining the group at
+    `coordinator`, or the launcher's from the environment)."""
+    from materialrefgs_torch import config as cfg
 
     import torch
 
@@ -193,6 +247,19 @@ def main(argv=None) -> dict:
     from materialrefgs_torch.train.trainer import Trainer
 
     device = resolve_device(args.device)
+    writer = rank == 0  # only rank 0 writes files
+    if args.dp:
+        from materialrefgs_torch.parallel import multihost
+
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+            torch.cuda.set_device(device)
+        else:
+            # The ranks share the host's cores; more threads than that spin
+            # against each other.
+            torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // world)))
+        multihost.initialize(coordinator, world, rank, device=device)
+        print(f"[dp] rank {rank}/{world} on {device} over {torch.distributed.get_backend()}", flush=True)
     preset = {"refnerf": cfg.preset_refnerf, "refreal": cfg.preset_refreal,
               "glossy": cfg.preset_glossy}[args.preset]
     model_params, pipe, opt = preset()
@@ -205,9 +272,13 @@ def main(argv=None) -> dict:
                                        model_path=args.model_path)
     if args.iterations:
         opt = dataclasses.replace(opt, iterations=args.iterations)
-    cfg.dump_config(args.model_path, model_params, pipe, opt,
-                    extra={"preset": args.preset, "capacity": args.capacity,
-                           "pair_capacity": args.pair_capacity, "seed": args.seed})
+
+    def dump_config(opt, extra):
+        if writer:
+            cfg.dump_config(args.model_path, model_params, pipe, opt, extra=extra)
+
+    dump_config(opt, {"preset": args.preset, "capacity": args.capacity, "pair_capacity": args.pair_capacity,
+                      "seed": args.seed})
 
     print(f"Loading scene from {args.source_path} ...")
     scene = Scene.load(model_params, device=device)
@@ -256,7 +327,14 @@ def main(argv=None) -> dict:
 
     bg = (1.0, 1.0, 1.0) if model_params.white_background else (0.0, 0.0, 0.0)
     tracer_pairs = args.tracer_pair_capacity or args.pair_capacity
-    trainer = Trainer(
+    trainer_kw = {}
+    trainer_cls = Trainer
+    if args.dp:
+        from materialrefgs_torch.parallel.dp_trainer import DPTrainer
+
+        trainer_cls = DPTrainer
+        trainer_kw["group"] = None
+    trainer = trainer_cls(
         model, scene.train_cameras, images, opt, pipe,
         cameras_extent=scene.cameras_extent, bg_color=bg,
         raster_cfg=RasterizeConfig(pair_capacity=args.pair_capacity),
@@ -273,6 +351,7 @@ def main(argv=None) -> dict:
         virtual_cam_trans_noise=model_params.multi_view_max_dis,
         virtual_cam_deg_noise=model_params.multi_view_max_angle,
         detect_anomaly=args.detect_anomaly,
+        **trainer_kw,
     )
     extra_cfg = {"preset": args.preset, "capacity": args.capacity, "seed": args.seed}
     if trainer.lpips_disabled:
@@ -280,8 +359,7 @@ def main(argv=None) -> dict:
         # the persisted config says the perceptual loss did not run.
         opt = trainer.opt
         extra_cfg["lpips_disabled"] = True
-        cfg.dump_config(args.model_path, model_params, pipe, opt,
-                        extra={**extra_cfg, "pair_capacity": args.pair_capacity})
+        dump_config(opt, {**extra_cfg, "pair_capacity": args.pair_capacity})
     if args.tracer_pair_capacity:
         # An explicit tracer budget is also its escalation's ceiling.
         trainer.MAX_TRACER_PAIR_CAPACITY = args.tracer_pair_capacity
@@ -327,36 +405,57 @@ def main(argv=None) -> dict:
 
     def save_ply(iteration):
         out = os.path.join(args.model_path, f"point_cloud/iteration_{iteration}/point_cloud.ply")
+        results["ply"] = out
+        if not writer:
+            return out
         gaussian_io.save_ply(trainer.state.model, out, env1=trainer.state.env1, env2=trainer.state.env2)
         if trainer.state.env_gs is not None:
             gaussian_io.save_ply(trainer.state.env_gs, os.path.join(os.path.dirname(out), "env_point_cloud.ply"))
-        results["ply"] = out
         return out
 
+    def write_log():
+        if writer:
+            with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
+                json.dump(trainer.metrics_log, f)
+
+    def deadline_passed() -> bool:
+        over = bool(args.deadline_min) and (time.time() - t0) / 60 > args.deadline_min
+        if args.dp:
+            # The ranks' clocks differ: they stop together if any is over.
+            flag = torch.tensor([int(over)], device=device)
+            torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+            over = bool(flag.item())
+        return over
+
+    logger = None
+    if writer:
+        from materialrefgs_torch.utils.logging_utils import TrainLogger
+
+        logger = TrainLogger(args.model_path)
     results = {"trainer": trainer, "test": {}, "ply": None, "deadline_hit": False}
     t0 = time.time()
     for target in sorted(marks):
-        if args.deadline_min and (time.time() - t0) / 60 > args.deadline_min:
+        if deadline_passed():
             # A clean stop at an iteration boundary (scripts/train.py:414-435):
             # checkpoint, PLYs and the log of the iteration reached.
             print(f"[deadline] {args.deadline_min:g} min budget exhausted at iteration {done}/{opt.iterations}; "
                   "saving and exiting")
             results["deadline_hit"] = True
-            save_checkpoint(trainer.state, done, args.model_path)
-            cfg.dump_config(args.model_path, model_params, pipe, opt,
-                            extra={**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
+            if writer:
+                save_checkpoint(trainer.state, done, args.model_path)
+            dump_config(opt, {**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
             save_ply(done)
-            with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
-                json.dump(trainer.metrics_log, f)
+            write_log()
             break
         trainer.train(target - done, start_iter=done + 1, log_every=args.log_every)
         done = target
         if args.ref_score_path == "auto" and target == opt.ref_score_start_iter:
             print(f"[{target}] mining reflection scores ...")
             trainer.mine_ref_scores()
-        with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
-            json.dump(trainer.metrics_log, f)
-        if target in test_marks and scene.test_cameras:
+        if logger is not None and trainer.metrics_log:
+            logger.scalars(target, trainer.metrics_log[-1])
+        write_log()
+        if writer and target in test_marks and scene.test_cameras:
             st = trainer.state
             with torch.no_grad():
                 mips = EnvLightMips.build(st.env1, min_roughness=model_params.envmap_min_roughness,
@@ -376,18 +475,24 @@ def main(argv=None) -> dict:
                 mesh=trainer.mesh if surfel2 else None,
             )
             results["test"][target] = m
+            logger.test_psnr(target, m["psnr"])
             print(f"[{target}] test psnr {m['psnr']:.2f}")
-        if target in ckpt_iters:
+        if writer and target in ckpt_iters:
             save_checkpoint(trainer.state, target, args.model_path)
         if target in save_iters or target == opt.iterations:
             # Record the escalated pair capacity, so eval renders the model
             # without dropping pairs.
-            cfg.dump_config(args.model_path, model_params, pipe, opt,
-                            extra={**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
+            dump_config(opt, {**extra_cfg, "pair_capacity": trainer.raster_cfg.pair_capacity})
             save_ply(target)
             last = trainer.metrics_log[-1] if trainer.metrics_log else {}
-            print(f"[{target}] saved; psnr={last.get('psnr', float('nan')):.2f} "
-                  f"n_alive={last.get('n_alive', 0)} wall={time.time() - t0:.0f}s")
+            if writer:
+                print(f"[{target}] saved; psnr={last.get('psnr', float('nan')):.2f} "
+                      f"n_alive={last.get('n_alive', 0)} wall={time.time() - t0:.0f}s")
+    if logger is not None:
+        logger.close()
+    if args.dp:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
     return results
 
 

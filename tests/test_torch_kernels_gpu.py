@@ -122,6 +122,46 @@ def test_rasterize_bwd_kernel_matches_plain(cuda_device, S, size):
 
 
 @pytest.mark.gpu
+def test_rasterize_kernels_match_plain_on_a_block_grid(cuda_device):
+    """A tile-sharded block (tile rows 9-17 of a 256x288 view, row0 = 9):
+    the forward kernel against its plain version bit for bit, and both
+    against the whole view's rows; the backward per value as above."""
+    W, H = 256, 288
+    cam = look_at_camera(
+        np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, 1.0, 0.0]),
+        0.9, 0.9, W, H, device=cuda_device,
+    )
+    S, row0, rows = 9, 9, 9
+    args = _scene(7, 6000, S, cuda_device)
+    cfg = api.RasterizeConfig(pair_capacity=1 << 22)
+    si = api._sorted_inputs(*args, cam, 1.0, cfg, rows=(row0, rows))
+    assert (si.grid_y, si.row0, int(si.bins.overflow)) == (rows, row0, 0)
+    pp = api._gather_pairs(si.payload_g, si.bins.g_sorted)
+    kw = dict(S=S, grid_x=si.grid_x, grid_y=rows, W=W, H=H, row0=row0)
+    tiles = (pp, si.bins.tile_start, si.bins.tile_count)
+    out = tiles_fwd.rasterize_tiles_fwd(*tiles, **kw)
+    assert torch.equal(out, tiles_fwd.rasterize_tiles_fwd_plain(*tiles, **kw))
+    whole = api.rasterize(*args, cam, torch.zeros(3, device=cuda_device), config=cfg)
+    block = api._unpack(out, S, si.grid_x, rows, W, rows * 16, torch.zeros(3, device=cuda_device))
+    # n_contrib counts positions in a tile's pair list, which the keep mask
+    # may cut shorter for a block's clipped rects; the maps are the view's.
+    for k in ("render", "feature", "normal", "depth", "alpha", "distortion"):
+        assert torch.equal(block[k], whole[k][row0 * 16:(row0 + rows) * 16]), k
+    lay = out_layout(S)
+    active = torch.amax(out[..., lay["n_contrib"][0]], dim=1).to(torch.int32)
+    cot = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(1))
+    cot[..., lay["_channels"]:] = 0.0
+    got = tiles_bwd.rasterize_tiles_bwd(*tiles, active, out, cot, **kw).cpu().numpy()
+    ref = tiles_bwd.rasterize_tiles_bwd_plain(*tiles, active, out, cot, **kw).cpu().numpy()
+    for lo, hi in ((0, 9), (9, 11), (11, 12), (12, got.shape[1])):
+        mag = np.abs(ref[:, lo:hi])
+        p99 = float(np.quantile(mag[mag > 0], 0.99))
+        tol = 1e-4 * np.minimum(mag + p99, mag.max()) + 1e-7
+        err = np.abs(got[:, lo:hi] - ref[:, lo:hi])
+        assert np.all(err <= tol), (lo, hi, float((err / tol).max()))
+
+
+@pytest.mark.gpu
 def test_rasterize_autograd_launches_both_kernels(cuda_device):
     """One forward and one backward launch per differentiated render."""
     cam = look_at_camera(

@@ -554,9 +554,12 @@ def test_train_cli_cpu_writes_a_ply_that_eval_loads(tmp_path):
                                    "--iterations", "9"])
     assert [m["iteration"] for m in warm["trainer"].metrics_log] == [9]
     assert warm["trainer"].state.step == 9  # the LR clock starts at --start_iter
-    # --dp stays refused; --ref_score_path reads one mask per train view
-    # (the scene's root has none).
-    with pytest.raises(NotImplementedError):
-        train.main(argv + ["--dp", "2"])
+    # --dp N needs N cards (data parallelism: tests/test_torch_data_parallel.py);
+    # --ref_score_path reads one mask per train view (the scene's root has none).
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="--dp 2 but only 1 CUDA cards"):
+            train.main([a for a in argv if a not in ("--device", "cpu")] + ["--dp", "2"])
     with pytest.raises(FileNotFoundError):
         train.main(argv + ["--ref_score_path", scene])
