@@ -163,13 +163,27 @@ Phases (any failure exits non-zero before the result lines are printed):
      denom, max radii), and rasterize_tile_sharded (two blocks of 25 tile
      rows) held to rasterize (maps at tests/test_tile_sharding.py's
      tolerances, gradients at 3e-3 x scale); time per rank, the gloo
-     all_reduce's bytes and ms.
+     all_reduce's bytes and ms;
+ 20. the volume stage at glossy's preset: scripts/train_torch.py --preset
+     glossy on phase 15's 24-view scene (masks, normal priors) from phase
+     7's iteration-50 PLY, iterations 51-130 `volume` (per-gaussian shading
+     against env2, the rasterizer at S = 5), the volume -> surfel re-init
+     at 131, 131-150 `surfel` with the roughness and base-colour warps past
+     140 (--volume_render_until_iter 130, --multi_view_weight_from_iter
+     140; no surfel2; the opacity reset off, densify every 10 steps, one
+     normal-propagation reset at 140 with dist_color); counts zeroed just
+     before, read just after; the stage sequence, finite losses, no step
+     applied truncated, the volume window's train PSNR up by >= 0.3 dB;
+     iteration 130 served through scripts/eval_torch.py (render_volume with
+     env2, equal to a direct render_set of the same PLY) and 150 (surfel);
+     both rasterizer kernels at one volume step's inputs (S = 5) against
+     their plain versions (the forward bit for bit), with times and bounds.
 
 The second-to-last line is the kernels' JSON record (launches from phase 16's
 run (b) and phase 19 (a)'s --dp 1 run, plus for the rasterizer phase 17's
-runs (a) and (b); times and bounds from phase 16 (c), the JPEG kernel's at
-phase 16's photo 0); the last line is {"ok": true, "device": {...}}. The
-script imports nothing of JAX.
+runs (a) and (b) and phase 20's run; times and bounds from phase 16 (c), the
+JPEG kernel's at phase 16's photo 0); the last line is {"ok": true,
+"device": {...}}. The script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -217,11 +231,11 @@ def bwd_flops(S, walked, pass3d, pass2d):
 # Tolerance of the backward kernel against its plain version, per gradient
 # value: BWD_RTOL x (the value's own magnitude + the 99th percentile of its
 # row group's nonzero magnitudes, at most the group's largest magnitude) +
-# BWD_ATOL. The per-pixel arithmetic is the
-# same; the sum over a tile's 256 pixels is taken in another order (warp
-# butterflies + 8 warp partials vs torch.sum), whose rounding scales with
-# the summands, so a pair whose sum cancels may differ by more than BWD_RTOL
-# of itself. A wrong term at a typical magnitude (the group's median) fails.
+# BWD_ATOL. The per-pixel arithmetic is the same, and the plain version sums
+# a tile's 256 pixels in the kernel's order (warp butterflies, then the warps
+# in order; the linear rows by fmaf in pixel order), so what is left is the
+# per-pixel functions' rounding (expf, log1pf, divisions) on the two sides.
+# A wrong term at a typical magnitude (the group's median) fails.
 BWD_RTOL, BWD_ATOL, BWD_PCT = 1e-4, 1e-7, 0.99
 TRAIN_W = TRAIN_H = 800
 TRAIN_VIEWS, TEST_VIEWS = 8, 4
@@ -303,6 +317,20 @@ DP_RES, DP_TRAIN, DP_TEST, DP_ITERS = 800, 8, 2, 12
 DP_CAPACITY, DP_POINTS = 1 << 19, 20_000
 DP_LOSS_RTOL = 2e-2
 DP_GRAD_RTOL = 3e-3  # x the leaf's largest |value|, + 1e-5 (tests/test_data_parallel.py)
+# Phase 20: the volume stage at glossy's preset on phase 15's 24-view scene,
+# from phase 7's iteration-50 PLY (taken after the normal-propagation reset
+# at 50; the iteration-30 one follows the opacity reset at 30, and a fresh
+# run has no prune grace, so its first densify would prune every splat):
+# `volume` VOL_START+1..VOL_END, the volume -> surfel re-init at
+# VOL_END + 1, `surfel` to VOL_RUN_END with glossy's roughness warp (and the
+# base-colour warp) past VOL_WARP_FROM; the learning check: mean train PSNR
+# of the volume window's last 5 steps at least VOL_PSNR_GAIN dB above its
+# first 5. The volume stage learns slowly at the reference's learning rates
+# (env2 and the albedo from constants): on the card its train PSNR rose
+# about 0.1 dB in 25 steps and 0.3 / 0.6 dB by 50 / 80 (PERF.md §6), so the
+# window is 80 steps; the phase prints its own rise at 25, 50 and 80.
+VOL_START, VOL_END, VOL_RUN_END, VOL_WARP_FROM = S2_FROM, 130, 150, 140
+VOL_PSNR_GAIN = 0.3
 # Tolerances per output group (the JAX package's tests/test_rasterize_pallas.py).
 TOLS = {
     "color": 2e-4, "feature": 2e-4, "normal": 2e-4, "M1": 2e-4, "M2": 2e-4,
@@ -378,13 +406,16 @@ def compare_grads(np, torch, out, ref, S):
     group's median, 99th percentile and largest magnitude; raises where a
     value is outside the per-value tolerance (BWD_RTOL above) or on a
     non-finite value. Returns the largest error and the largest err/tol over
-    all groups."""
+    all groups. The plain version sums a tile's pixels in the kernel's
+    order, so a value that differs at all comes from a per-pixel term."""
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, ROW_MEAN2D, ROW_OPACITY, ROW_TU, ROW_TV, ROW_TW
 
     groups = {"dTu": (ROW_TU, ROW_TV), "dTv": (ROW_TV, ROW_TW), "dTw": (ROW_TW, ROW_MEAN2D),
               "dmean2d": (ROW_MEAN2D, ROW_OPACITY), "dopacity": (ROW_OPACITY, ROW_LIN),
               "dlin": (ROW_LIN, out.shape[1])}
     check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(ref).all()), f"S={S}: non-finite gradients")
+    n_diff = int((out != ref).sum())
+    print(f"    backward vs plain: {n_diff} of {out.numel()} values differ at all")
     worst, worst_ratio = 0.0, 0.0
     for name, (lo, hi) in groups.items():
         a, b = out[:, lo:hi], ref[:, lo:hi]
@@ -1940,6 +1971,143 @@ def dp_phase(np, torch, dev, smi_line, work_dir, train_torch, model_ply):
     return launches["dp1"], block
 
 
+def volume_phase(np, torch, dev, smi_line, ctx):
+    """Phase 20: the volume stage at glossy's preset, trained and served at
+    full width. ctx: warp_scene and priors_dir (phase 15's 24-view scene and
+    its normal priors), start_dir (phase 7's point_cloud/iteration_50),
+    work_dir, train_torch, eval_torch. Returns the rasterizer launches of the
+    run and the numbers of the kernels at a captured volume step (S = 5)."""
+    from materialrefgs_torch import config as cfg
+    from materialrefgs_torch import evaluate
+    from materialrefgs_torch.models import gaussian_io
+    from materialrefgs_torch.models.env_light import EnvLightMips
+    from materialrefgs_torch.models.scene import Scene
+    from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
+    from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
+    from materialrefgs_torch.render.renderers import RenderOptions
+    from materialrefgs_torch.train.trainer import init_train_state
+
+    t_phase = time.perf_counter()
+    fns = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd)
+    scene_dir, run_dir = ctx["warp_scene"], os.path.join(ctx["work_dir"], "volume_run")
+    # Glossy as users run it, with the stage boundaries moved by the CLI's
+    # own flags. Cuts: depth (100 steps), no surfel2 (indirect_from_iter past
+    # the end), the opacity reset (every 30 at x 0.01) off, densify every 10
+    # steps and one normal-propagation reset (at 140, past the volume stage:
+    # dist_color runs in it).
+    argv = ["-s", scene_dir, "-m", run_dir, "--preset", "glossy", "--schedule_scale", "0.01",
+            "--start_ply", ctx["start_dir"], "--start_iter", str(VOL_START), "--iterations", str(VOL_RUN_END),
+            "--capacity", str(1 << 19), "--pair_capacity", str(1 << 20),
+            "--volume_render_until_iter", str(VOL_END), "--indirect_from_iter", "1000",
+            "--multi_view_weight_from_iter", str(VOL_WARP_FROM), "--rghmtl_warp_loss_start_iter",
+            str(VOL_WARP_FROM), "--basecolor_warp_from_iter", str(VOL_WARP_FROM),
+            "--opacity_reset_interval", "1000", "--densification_interval_when_prop", "10",
+            "--normal_prop_interval", str(VOL_WARP_FROM), "--mask_dir", os.path.join(scene_dir, "train"),
+            "--metric3d_path", ctx["priors_dir"], "--save_iterations", str(VOL_END), str(VOL_RUN_END),
+            "--log_every", "1"]
+    print("  python scripts/train_torch.py " + " ".join(argv))
+    for fn in fns:
+        fn.launches = 0  # counts of this path's run only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ctx["train_torch"].main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fns}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tr = res["trainer"]
+    log = tr.metrics_log
+    for prev, m in zip([None] + log[:-1], log):
+        step_s = m["wall"] - prev["wall"] if prev else float("nan")
+        print(f"    it {m['iteration']:3d} {m['stage']:7s} warp_on {m['warp_on']} loss {m['loss']:.5f} "
+              f"psnr {m['psnr']:.3f} n_alive {m['n_alive']} rgh warp {m.get('loss_warp_rgh', float('nan')):.3e} "
+              f"renders redone {m['renders_redone']:.0f} s/step {step_s:.4f}")
+    n = VOL_RUN_END - VOL_START
+    n_vol = VOL_END - VOL_START
+    check([m["iteration"] for m in log] == list(range(VOL_START + 1, VOL_RUN_END + 1)), "phase 20 skipped iterations")
+    check([m["stage"] for m in log] == ["volume"] * n_vol + ["surfel"] * (n - n_vol),
+          f"stages are not {VOL_START + 1}-{VOL_END} volume, {VOL_END + 1}-{VOL_RUN_END} surfel")
+    check(all(math.isfinite(m["loss"]) for m in log), "phase 20: non-finite loss")
+    check(all(m["overflow"] == 0 and m.get("nearest_overflow", 0) == 0 for m in log),
+          "phase 20: a step was applied truncated")
+    check(all(m["warp_on"] == int(m["iteration"] > VOL_WARP_FROM) for m in log),
+          f"phase 20: the warp did not run on exactly the steps past {VOL_WARP_FROM}")
+    check(any(m.get("loss_warp_rgh", 0.0) != 0.0 for m in log), "phase 20: the roughness warp was zero on every step")
+    for name, prm in tr.state.params().items():
+        check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after phase 20")
+    n_warp = sum(m["warp_on"] for m in log)
+    want_fwd = sum((1 + m["warp_on"]) * (1 + m["renders_redone"]) for m in log)
+    check(launches["rasterize_tiles_bwd"] == n + n_warp,
+          f"rasterizer backward launched {launches['rasterize_tiles_bwd']} times for {n} steps, {n_warp} with a "
+          "nearest render")
+    check(launches["rasterize_tiles_fwd"] == want_fwd,
+          f"rasterizer forward launched {launches['rasterize_tiles_fwd']} times, expected {want_fwd}")
+    psnr = [m["psnr"] for m in log[:n_vol]]
+    first, last = float(np.mean(psnr[:5])), float(np.mean(psnr[-5:]))
+    print("  volume window train PSNR rise (mean of the 5 steps ending at step k minus the first 5): " + ", ".join(
+        f"k={k} +{float(np.mean(psnr[k - 5:k])) - first:.3f} dB" for k in (25, 50, n_vol) if 5 <= k <= n_vol))
+    print(f"  {n} steps in {run_s:.1f} s, peak device memory {peak:.2f} GiB; kernel launches {launches}; volume "
+          f"window train PSNR, mean of the first 5 steps {first:.3f} dB, of the last 5 {last:.3f} dB "
+          f"(+{last - first:.3f}; needs >= {VOL_PSNR_GAIN})")
+    check(last - first >= VOL_PSNR_GAIN, f"phase 20: the volume stage's train PSNR rose {last - first:.3f} dB "
+          f"(< {VOL_PSNR_GAIN})")
+    walls = {}
+    for a, b in zip(log, log[1:]):
+        if b["renders_redone"] == 0 and b["iteration"] != VOL_END + 1:
+            key = "volume" if b["stage"] == "volume" else ("surfel, warp" if b["warp_on"] else "surfel")
+            walls.setdefault(key, []).append(b["wall"] - a["wall"])
+    step_s = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    print("  host s/step (median, steps without a redo): " + ", ".join(f"{k} {v:.4f} ({len(walls[k])} steps)"
+                                                                       for k, v in step_s.items()))
+
+    # Serve the last volume iteration (render_volume with env2) and the end
+    # (surfel) through scripts/eval_torch.py; the first against a direct
+    # render_set of the same PLY.
+    served = []
+    real_rv = evaluate.render_volume
+    evaluate.render_volume = lambda *a, **k: served.append(1) or real_rv(*a, **k)
+    try:
+        ev_vol = ctx["eval_torch"].main(["-m", run_dir, "-s", scene_dir, "--iteration", str(VOL_END),
+                                         "--skip_train"])["test"]
+    finally:
+        evaluate.render_volume = real_rv
+    ev_end = ctx["eval_torch"].main(["-m", run_dir, "-s", scene_dir, "--skip_train"])["test"]
+    mp, pipe, opt, extra = cfg.load_config(run_dir)
+    mp = dataclasses.replace(mp, source_path=scene_dir, model_path=run_dir)
+    scene = Scene.load(mp, device=dev)
+    ply = os.path.join(run_dir, "point_cloud", f"iteration_{VOL_END}", "point_cloud.ply")
+    model, _, env2 = gaussian_io.load_ply(ply, max_sh_degree=mp.sh_degree, device=dev)
+    check(env2 is not None, "phase 20: the volume-stage PLY has no env2")
+    with torch.no_grad():
+        mips = EnvLightMips.build(env2, min_roughness=mp.envmap_min_roughness, max_roughness=mp.envmap_max_roughness)
+    opts = RenderOptions(srgb=opt.srgb, unbiased_depth=pipe.unbiased_depth, use_asg=pipe.use_asg,
+                         depth_ratio=pipe.depth_ratio,
+                         raster=RasterizeConfig(pair_capacity=int(extra.get("pair_capacity", 1 << 20))))
+    direct = evaluate.render_set(os.path.join(ctx["work_dir"], "volume_direct"), "test", scene.test_cameras,
+                                 [scene.test_image(i) for i in range(len(scene.test_cameras))], model, mips, None,
+                                 opts, dump_maps=False, bg_color=(1.0, 1.0, 1.0), stage="volume")
+    print(f"  served through scripts/eval_torch.py: iteration {VOL_END} (volume, env2) psnr {ev_vol['psnr']:.4f} dB, "
+          f"ssim {ev_vol['ssim']:.5f} (a direct render_set: {direct['psnr']:.4f} dB); iteration {VOL_RUN_END} "
+          f"(surfel) psnr {ev_end['psnr']:.4f} dB, ssim {ev_end['ssim']:.5f}")
+    check(len(served) == len(scene.test_cameras) and ev_vol["overflow"] == 0,
+          "the volume-stage checkpoint was not served through render_volume")
+    check(ev_vol["psnr"] == direct["psnr"], "the served volume checkpoint's PSNR differs from a direct render_set")
+    check(all(math.isfinite(e["psnr"]) for e in (ev_vol, ev_end)), "phase 20: non-finite served PSNR")
+
+    # Both rasterizer kernels at one volume step's inputs (S = 5): the PLY
+    # saved at the last volume iteration in a fresh state, one Trainer step.
+    model, _, env2 = gaussian_io.load_ply(ply, capacity=1 << 19, max_sh_degree=mp.sh_degree, device=dev)
+    tr.state = init_train_state(model, mp.envmap_max_res)
+    tr.state.env2.base.data.copy_(env2.base)
+    caps = capture_raster(torch, api, lambda: tr._run_step(VOL_END, "volume"))
+    check(len(caps) == 1 and caps[0][1]["S"] == 5, f"phase 20: captured {len(caps)} backward calls, not one at S=5")
+    raster = raster_at(np, torch, f"a volume step (glossy, iteration {VOL_END}, {TRAIN_W}x{TRAIN_H})", caps[0])
+    del caps
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s ({smi_line})")
+    return {"launches": launches, "raster": raster, "step_s": step_s, "psnr": (first, last),
+            "served": (ev_vol["psnr"], ev_end["psnr"]), "run_s": run_s, "peak": peak}
+
+
 def pow2_at_least(n):
     return 1 << max(int(math.ceil(n)) - 1, 1).bit_length()
 
@@ -3205,12 +3373,19 @@ def main() -> int:
     # ----------------------------------------------------------------- 19 --
     phase("19. data parallelism: --dp 1 over NCCL, two ranks on the card over gloo, tile-sharded rendering")
     dp_launches, dp_block = dp_phase(np, torch, dev, smi_line, work_dir, train_torch, ply)
+    # ----------------------------------------------------------------- 20 --
+    phase("20. the volume stage at glossy's preset: train and serve at full width")
+    p20 = volume_phase(np, torch, dev, smi_line, {
+        "warp_scene": warp_scene, "priors_dir": priors_dir, "work_dir": work_dir, "train_torch": train_torch,
+        "eval_torch": eval_torch, "start_dir": start_dir,
+    })
+    rv_ = p20["raster"]
 
     # The rasterizer rows count the main paths' launches: refreal's run
-    # (phase 16 (b)), phase 17's residual and ASG runs and phase 19 (a)'s
-    # --dp 1 run; the tracer rows refreal's and --dp 1's.
+    # (phase 16 (b)), phase 17's residual and ASG runs, phase 19 (a)'s --dp 1
+    # run and phase 20's volume run; the tracer rows refreal's and --dp 1's.
     raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k] + dp_launches[k]
-                       for k in ("rasterize_tiles_fwd", "rasterize_tiles_bwd")}
+                       + p20["launches"][k] for k in ("rasterize_tiles_fwd", "rasterize_tiles_bwd")}
 
     record = {"kernels": [
         {
@@ -3219,7 +3394,8 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_fwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_fwd.py:363",
             "launches": raster_launches["rasterize_tiles_fwd"],
-            "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"], dp_block["fwd"]["err"]),
+            "max_abs_err": max(full_err, raster_iii["fwd"]["err"], rr_["fwd"]["err"], dp_block["fwd"]["err"],
+                               rv_["fwd"]["err"]),
             "ms": rr_["fwd"]["ms"],
             "plain_ms": rr_["fwd"]["plain_ms"],
             "bound_ms": rr_["fwd"]["bound"],
@@ -3232,7 +3408,8 @@ def main() -> int:
             "source": "materialrefgs_torch/csrc/rasterize_bwd.cu",
             "replaces": "materialrefgs_tpu/ops/rasterize/pallas_bwd.py:385",
             "launches": raster_launches["rasterize_tiles_bwd"],
-            "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"], dp_block["bwd"]["err"]),
+            "max_abs_err": max(bwd_err, raster_iii["bwd"]["err"], rr_["bwd"]["err"], dp_block["bwd"]["err"],
+                               rv_["bwd"]["err"]),
             "ms": rr_["bwd"]["ms"],
             "plain_ms": rr_["bwd"]["plain_ms"],
             "bound_ms": rr_["bwd"]["bound"],
@@ -3285,7 +3462,7 @@ def main() -> int:
           + f"); surfel2 training path launches: {s2_launches}; warp path (phase 15 (a)) launches: {a_launches}; "
           f"refreal path (phase 16 (b)) launches: {real['launches']}; residual path (phase 17 (a)) launches: "
           f"{p17['a_launches']}; ASG path (phase 17 (b)) launches: {p17['b_launches']}; --dp 1 path (phase 19 (a)) "
-          f"launches: {dp_launches}")
+          f"launches: {dp_launches}; volume path (phase 20) launches: {p20['launches']}")
     print(f"rasterizer forward: input (i) {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.1f}); (iii) "
           f"{raster_iii['fwd']['ms']:.4f} ms (bound {raster_iii['fwd']['bound']:.4f}, plain "
           f"{raster_iii['fwd']['plain_ms']:.1f}); bit-identical at both")
@@ -3293,6 +3470,11 @@ def main() -> int:
           f"{plain_bwd_ms:.1f}, largest err/tol {bwd_ratio:.3e}); (iii) {raster_iii['bwd']['ms']:.4f} ms (bound "
           f"{raster_iii['bwd']['bound']:.4f}, plain {raster_iii['bwd']['plain_ms']:.1f}, largest err/tol "
           f"{raster_iii['bwd']['ratio']:.3e})")
+    print(f"rasterizer at a volume step (phase 20, S=5): forward {rv_['fwd']['ms']:.4f} ms (bound "
+          f"{rv_['fwd']['bound']:.4f}, plain {rv_['fwd']['plain_ms']:.1f}), backward {rv_['bwd']['ms']:.4f} ms (bound "
+          f"{rv_['bwd']['bound']:.4f}, plain {rv_['bwd']['plain_ms']:.1f}, largest err/tol {rv_['bwd']['ratio']:.3e}); "
+          f"host s/step {p20['step_s']}; volume-window train PSNR {p20['psnr'][0]:.3f} -> {p20['psnr'][1]:.3f} dB; "
+          f"served {p20['served'][0]:.3f} (volume) / {p20['served'][1]:.3f} (surfel) dB")
     print(f"tracer at the surfel2 step (phase 14): forward {f_ms:.4f} ms, bound {f_bound:.4f} ms, plain "
           f"{f_plain_ms:.1f} ms; backward {s_ms:.4f} ms, bound {s_bound:.4f} ms, plain {s_plain_ms:.1f} ms")
     print(f"refreal at 1236x821 (phase 16 (c)): rasterizer forward {rr_['fwd']['ms']:.4f} ms (bound "

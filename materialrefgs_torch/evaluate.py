@@ -18,7 +18,7 @@ from materialrefgs_torch.models.env_light import EnvLightMips
 from materialrefgs_torch.models.gaussian_model import GaussianModel
 from materialrefgs_torch.ops.tracer.api import TracerConfig
 from materialrefgs_torch.render.envgs import render_surfel2
-from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel
+from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel, render_volume
 from materialrefgs_torch.train.losses import psnr, ssim
 from materialrefgs_torch.utils.png import write_png
 
@@ -63,16 +63,15 @@ def render_set(
 
     bg_color must match the dataset's composite background (white for the
     Shiny Blender synthetic presets). stage="initial" evaluates the SH-color
-    path of the pre-deferred curriculum phase; with `env_model` (an env-GS
+    path of the pre-deferred curriculum phase, stage="volume" the
+    per-gaussian shading of the volume stage with the caller's envmap (env2
+    for a volume-stage checkpoint); with `env_model` (an env-GS
     checkpoint) the deferred stage renders through render_surfel2, and a view
     whose traces overflow `tracer_cfg` is redone with budgets that fit it
     (fit_tracer_budgets), kept for the views after it; its time counts the
     redo."""
-    if stage not in ("initial", "surfel"):
-        raise NotImplementedError(
-            f"stage {stage!r} is not ported yet: the volume stage comes with "
-            "the multi-view/volume slice"
-        )
+    if stage not in ("initial", "volume", "surfel"):
+        raise ValueError(f"stage {stage!r} is not one of initial, volume, surfel")
     dev = model.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     psnrs, ssims, times, normal_maes, overflows, tracer_overflows = [], [], [], [], [], []
@@ -86,6 +85,8 @@ def render_set(
     def run(cam, tcfg):
         if stage == "initial":
             return render_initial(model, cam, bg, opts)
+        if stage == "volume":
+            return render_volume(model, cam, bg, envmap, opts)
         if env_model is not None:
             return render_surfel2(model, env_model, cam, bg, envmap, opts, tcfg, mesh=mesh)
         return render_surfel(model, cam, bg, envmap, opts)

@@ -447,6 +447,55 @@ def reset_refl(model: GaussianModel, exclusive_msk=None, rst_value=None) -> None
     model.refl_strength.copy_(new)
 
 
+@torch.no_grad()
+def dist_color(model: GaussianModel, generator: torch.Generator | None = None, exclusive_msk=None,
+               noise: torch.Tensor | None = None) -> None:
+    """gaussian_model.py:598-610: perturb f_dc of low-refl gaussians by
+    U(-0.4, 0.4) noise, (CAP, 1, 3) uniforms from `generator`, or `noise`
+    (the uniforms, as tests pass the JAX package's draw)."""
+    REFL_MSK_THR = 0.02
+    DIST_RANGE = 0.4
+    refl_msk = (torch.sigmoid(model.refl_strength) > REFL_MSK_THR)[:, 0]
+    if exclusive_msk is not None:
+        refl_msk = refl_msk | exclusive_msk
+    dcc = model.features_dc
+    u = _uniforms(dcc.shape, generator, noise, dcc.device)
+    new = torch.where(refl_msk[:, None, None], dcc, dcc + (u * DIST_RANGE * 2 - DIST_RANGE))
+    dcc.copy_(new)
+
+
+def _uniforms(shape, generator, noise, device) -> torch.Tensor:
+    if noise is not None:
+        return noise.to(device=device, dtype=torch.float32).reshape(shape)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+@torch.no_grad()
+def reset_ori_color(model: GaussianModel, generator: torch.Generator | None = None, reset_value=0.5,
+                    noise_level=0.05, noise: torch.Tensor | None = None) -> None:
+    """gaussian_model.py:699+: re-init albedo around reset_value, with
+    (CAP, 3) uniforms from `generator`, or `noise` (the uniforms)."""
+    u = _uniforms(model.ori_color.shape, generator, noise, model.ori_color.device)
+    v = torch.clamp(reset_value + (u - 0.5) * noise_level, 1e-4, 1 - 1e-4)
+    model.ori_color.copy_(inverse_sigmoid(v))
+
+
+def _logit32(value: float) -> float:
+    """log(v / (1 - v)) as the JAX package takes it: the ratio in Python
+    floats, the log in float32 (float(jnp.log(...)))."""
+    return float(torch.log(torch.tensor(value / (1 - value), dtype=torch.float32)))
+
+
+@torch.no_grad()
+def reset_roughness(model: GaussianModel, value=INIT_ROUGHNESS) -> None:
+    model.roughness.fill_(_logit32(value))
+
+
+@torch.no_grad()
+def reset_refl_strength(model: GaussianModel, value=INIT_REFL) -> None:
+    model.refl_strength.fill_(_logit32(value))
+
+
 def enlarge_refl_scales(
     model: GaussianModel,
     enlarge_scale: float = 1.5,

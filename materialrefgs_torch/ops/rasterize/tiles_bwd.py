@@ -52,6 +52,11 @@ from materialrefgs_torch.ops.rasterize.tiles_fwd import (
 )
 
 SOURCE = nvcc.CSRC / "rasterize_bwd.cu"
+WARP = 32
+NWARP = PIX // WARP
+# Pair rows whose per-pixel weights the plain version holds at once before
+# it sums their linear rows (256 floats a row).
+LIN_ROWS_AT_ONCE = 1 << 18
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,6 +98,53 @@ def _check_bwd_inputs(payload, tile_start, tile_count, tile_active, fwd_out, cot
             raise ValueError(f"{name} must be {want} float32, got {x.dtype} {tuple(x.shape)}")
     if not all(x.device == payload.device for x in (tile_active, fwd_out, cotangent)):
         raise ValueError("all inputs must be on one device")
+
+
+def warp_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a tile's 256 pixels) in the CUDA kernel's
+    order for the 12 geometric rows: within each warp of 32 lanes the
+    butterfly of `reduce12`/`reduce4` (lane l plus lane l + 16, then the
+    halves of 8, 4, 2 and 1), then the eight warp sums added in warp order
+    starting from 0. Warps the kernel leaves out of a pair's sum hold zeros
+    here, which add nothing."""
+    x = v.reshape(*v.shape[:-1], NWARP, WARP)
+    h = WARP // 2
+    while h:
+        x = x[..., :h] + x[..., h : 2 * h]
+        h //= 2
+    s = torch.zeros_like(x[..., 0, 0])
+    for k in range(NWARP):
+        s = s + x[..., k, 0]
+    return s
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of float32 values, rounded once, as `__fmaf_rn` does:
+    a * b is exact in float64, the float64 sum is made round-to-odd from its
+    exact error (TwoSum), and rounding that to float32 is the correct
+    rounding of a * b + c (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    t = p + c
+    bp = t - p
+    e = (p - (t - bp)) + (c - bp)
+    bits = t.view(torch.int64)
+    fix = (e != 0) & ((bits & 1) == 0) & torch.isfinite(t)
+    bits = torch.where(fix, bits + torch.where((e > 0) == (t > 0), 1, -1), bits)
+    return bits.view(torch.float64).float()
+
+
+def pixel_order_dot(w: torch.Tensor, dlin: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """The linear rows of R pairs in the CUDA kernel's order: for each pair
+    row r and channel k, s = fmaf(w[r, p], dlin[tiles[r], p, k], s) over the
+    pixels p = 0..255 in order, from s = 0. w (R, 256) holds each pixel's
+    blend weight of the pair (0 where it does not count), dlin (T, 256, ACC)
+    the tiles' cotangent; returns (R, ACC) float32. A pixel of weight 0
+    leaves s as it is, so the warps the kernel skips change nothing."""
+    s = torch.zeros((w.shape[0], dlin.shape[-1]), dtype=torch.float32, device=w.device)
+    for p in range(PIX):
+        s = fma_f32(w[:, p : p + 1], dlin[tiles, p], s)
+    return s
 
 
 def rasterize_tiles_bwd(
@@ -173,7 +225,10 @@ def rasterize_tiles_bwd_plain(
     alpha clamp passes its gradient through, as the kernels' does. Row i of
     the work is tile tile_order[i] (default: longest_first, the kernel's
     blocks); the result does not depend on the permutation. The kernel's
-    prefilter changes no value and is applied here too.
+    prefilter changes no value and is applied here too. A pair's rows sum
+    the tile's 256 pixels in the kernel's order (`warp_order_sum` for the
+    12 geometric rows, `pixel_order_dot` for the linear ones), so that a sum
+    that cancels rounds as the kernel's does.
 
     `work`, when given, receives how many (pixel, pair) passed the hit test
     inside the pixel's contributor range, by branch: "pass3d" (ray-splat
@@ -228,6 +283,16 @@ def rasterize_tiles_bwd_plain(
     carry_lg = torch.zeros((num_tiles, PIX), **f32)
     n3 = torch.zeros((), dtype=torch.int64, device=dev)
     n2 = torch.zeros((), dtype=torch.int64, device=dev)
+    tile_ids = torch.arange(num_tiles, device=dev)
+    # Each pair's per-pixel weights wait here until their linear rows are
+    # summed, LIN_ROWS_AT_ONCE pairs at a time.
+    pending = {"w": [], "tiles": [], "cols": [], "rows": 0}
+
+    def flush_linear():
+        if pending["rows"]:
+            cat = {k: torch.cat(pending[k]) for k in ("w", "tiles", "cols")}
+            dpair[cat["cols"], ROW_LIN:] = pixel_order_dot(cat["w"], dLin, cat["tiles"])
+            pending.update(w=[], tiles=[], cols=[], rows=0)
 
     for j in range(int(active.max()) - 1, -1, -1):
         live = j < active  # (T,)
@@ -272,7 +337,9 @@ def rasterize_tiles_bwd_plain(
         T_i = torch.exp(logT_fin - (carry_lg + lg))
         w = a * T_i
         depth_safe = torch.where(ok, depth, one)
-        m = ndc_scale * (1.0 - NEAR_N / depth_safe)
+        # Divisions as the kernel takes them: a Python number over a tensor
+        # is a reciprocal times the number in torch, which rounds otherwise.
+        m = ndc_scale * (1.0 - torch.full_like(depth_safe, NEAR_N) / depth_safe)
 
         lin = pay[ROW_LIN:NG, :, 0]  # (ACC, T)
         G = zero
@@ -284,7 +351,7 @@ def rasterize_tiles_bwd_plain(
         one_m = torch.where(ok, 1.0 - a, one)
         dalpha = torch.where(ok, T_i * G - carry_gw / one_m - (final_T / one_m) * dTfin, zero)
 
-        dmd_dd = (FAR_N * NEAR_N) / ((FAR_N - NEAR_N) * depth_safe * depth_safe)
+        dmd_dd = torch.full_like(depth_safe, FAR_N * NEAR_N) / ((FAR_N - NEAR_N) * depth_safe * depth_safe)
         dz = w * dD
         dz = torch.where(idx1 == med_contrib, dz + dMed, dz)
         dz = dz + (2.0 * w * (m * A_tot - M1_tot) * dReg + w * dM1 + 2.0 * w * m * dM2) * dmd_dd
@@ -318,12 +385,19 @@ def rasterize_tiles_bwd_plain(
             torch.where(on2, dG_g * (-Gg) * FILTER_INV_SQUARE * d2, zero),
             torch.where(ok, Gg * dalpha, zero),
         ]
-        per_pixel += [dLin[..., k] * w for k in range(ACC)]
-        sums = torch.stack([torch.sum(v, dim=1) for v in per_pixel], dim=1)  # (T, NG)
-        dpair[(start + j)[live]] = sums[live]
+        geo = warp_order_sum(torch.stack(per_pixel, dim=1))  # (T, 12)
+        cols = (start + j)[live]
+        dpair[cols, :ROW_LIN] = geo[live]
+        pending["w"].append(w[live])
+        pending["tiles"].append(tile_ids[live])
+        pending["cols"].append(cols)
+        pending["rows"] += len(cols)
+        if pending["rows"] >= LIN_ROWS_AT_ONCE:
+            flush_linear()
 
         carry_gw = carry_gw + gw
         carry_lg = carry_lg + lg
+    flush_linear()
     if work is not None:
         work["pass3d"], work["pass2d"] = int(n3), int(n2)
     return dpair

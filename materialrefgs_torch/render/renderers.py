@@ -4,6 +4,10 @@
   render_surfel  (ref :225) — deferred: rasterize base color + feature vector
       [refl, rough, ori_color(3), indirect(3), distance], then per-pixel
       split-sum shading; final = (1-refl)*base + specular, bg composited last.
+  render_volume  (ref :521) — forward: split-sum shading per gaussian
+      (shading.full_color_volume, with the caller's envmap: env2 in the
+      volume stage), then rasterize the shaded colours with the features
+      [refl, rough, ori_color(3)].
 
 All outputs channel-last (H, W, C). The PGSR-flavor unbiased depth is
 reconstructed from the composited plane-distance and normal maps:
@@ -14,7 +18,7 @@ mesh-traced visibility is `mesh_visibility_map` below. The indirect light
 rasterized per gaussian is SH or, with use_asg, ASG lobes (utils/asg.py).
 Given a mesh (the raytracing_residual flavor), `render_surfel` takes its
 visibility and indirect light from `mesh_indirect_maps`, the mesh-traced
-one-bounce shading. Not ported yet: render_volume (the volume stage).
+one-bounce shading.
 """
 from __future__ import annotations
 
@@ -240,6 +244,52 @@ def render_surfel(
         }
     )
     return results
+
+
+def render_volume(
+    pc: GaussianModel,
+    camera: Camera,
+    bg_color: torch.Tensor,
+    envmap: EnvLightMips,
+    opts: RenderOptions = RenderOptions(),
+    mean2d_offset: torch.Tensor | None = None,
+) -> dict:
+    """Forward (per-gaussian) shading then rasterize
+    (gaussian_renderer/__init__.py:521+ render_volume).
+    mean2d_offset: see ops/rasterize/api.rasterize (densification stats)."""
+    # Only the alive gaussians are shaded. A free slot (raw opacity -15) is
+    # culled by the rasterizer, so its colour reaches nothing; shading the
+    # free slots too (as the JAX package does) would pile their identical
+    # lookups onto one cubemap texel, whose gradient scatter (index_put with
+    # accumulate) walks them one by one.
+    idx = torch.nonzero(pc.alive).squeeze(1)
+    normals, _ = _gaussian_normals(pc, camera)
+    refl, rough, ori_color = pc.get_refl, pc.get_rough, pc.get_ori_color
+    diffuse, specular, _ = shading.full_color_volume(
+        envmap, pc.xyz[idx], ori_color[idx], camera, normals[idx], refl[idx], rough[idx],
+    )
+    colors = torch.zeros((pc.capacity, 3), dtype=diffuse.dtype, device=pc.device).index_copy(
+        0, idx, diffuse + specular)
+    feats = torch.cat([refl, rough, ori_color], dim=-1)
+    out = rasterize(
+        pc.xyz, pc.get_scaling, pc.get_rotation, pc.get_opacity[:, 0], colors, feats,
+        camera, _zeros3(pc.device), config=opts.raster, mean2d_offset=mean2d_offset,
+    )
+    regs = _unpack_regularizations(out, camera, opts, None)
+    image = out["render"]
+    if opts.srgb:
+        image = linear_to_srgb(image)
+    image = image + bg_color[None, None, :] * (1 - regs["rend_alpha"])
+    return {
+        "render": image,
+        "refl_strength_map": out["feature"][..., 0:1],
+        "roughness_map": out["feature"][..., 1:2],
+        "base_color_map": out["feature"][..., 2:5],
+        "radii": out["radii"],
+        "visibility_filter": out["radii"] > 0,
+        "overflow": out["overflow"],
+        **regs,
+    }
 
 
 def _surface_bundles(camera: Camera, normal_map, surf_depth, render_alpha):

@@ -11,6 +11,9 @@ All maps are channel-last (H, W, C). Shading contract
   spec_light = direct * vis + (1 - vis) * indirect          (if vis given)
   specular   = spec_light * alpha * spec_w
   final      = (1 - m) * base + specular                    (in render paths)
+
+The volume stage shades each gaussian instead (full_color_volume): the same
+split sum per splat centre, with the view direction from the camera centre.
 """
 from __future__ import annotations
 
@@ -77,3 +80,35 @@ def specular_color_surfel(
 
     specular = specular_light * render_alpha * specular_weight
     return specular, extras
+
+
+def full_color_volume(
+    envmap,  # EnvLightMips
+    xyz: torch.Tensor,  # (P, 3)
+    albedo: torch.Tensor,  # (P, 3)
+    camera: Camera,
+    normal: torch.Tensor,  # (P, 3) world-space
+    refl_strength: torch.Tensor,  # (P, 1)
+    roughness: torch.Tensor,  # (P, 1)
+    visibility: torch.Tensor | None = None,  # (P, 1)
+    indirect_light: torch.Tensor | None = None,  # (P, 3)
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Per-gaussian forward shading (refl_utils.py:426-489
+    get_full_color_volume{,_indirect}): returns (diffuse, specular, extras)."""
+    w_o = normalize(camera.camera_center[None, :] - xyz)
+    NoV = torch.sum(w_o * normal, dim=-1, keepdim=True)
+    rays_refl = normalize(reflect(w_o, normal))
+
+    fg = sample_fg_lut(NoV[..., 0], roughness[..., 0])  # (P, 2)
+    diffuse = envmap(normal, mode="diffuse") * (1 - refl_strength) * albedo
+    direct_light = envmap(rays_refl, roughness=roughness)
+    specular_weight = (
+        0.04 * (1 - refl_strength) + albedo * refl_strength
+    ) * fg[..., 0:1] + fg[..., 1:2]
+    if visibility is not None and indirect_light is not None:
+        specular_light = direct_light * visibility + (1 - visibility) * indirect_light
+    else:
+        specular_light = direct_light
+    specular = specular_light * specular_weight
+    extras = {"direct_light": direct_light, "visibility": visibility}
+    return diffuse, specular, extras

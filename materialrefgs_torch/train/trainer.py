@@ -1,10 +1,11 @@
-"""Training loop for the refnerf curriculum's `initial`, `surfel` and
+"""Training loop for the curriculum's `initial`, `volume`, `surfel` and
 `surfel2` stages (the JAX package's train/trainer.py, reference
 train_refnerf.py:1012-1533), from iteration 1 to the end of the schedule.
 
 `make_train_step(stage, ...)` returns one optimization step of that stage
 (a `TrainStep`, whose render and update halves can be called apart):
-render through the rasterizer (both tile kernels) and, in `surfel2`, the
+render through the rasterizer (both tile kernels; in `volume` the
+gaussians are shaded first, against env2's mips) and, in `surfel2`, the
 env-GS trace (both tracer kernels) with mesh-traced visibility, the loss terms
 (calculate_loss with the image-gradient weight, the normal-consistency
 ladder, mask entropy when masks exist, the env-scope penalty when
@@ -18,10 +19,11 @@ or mined by `Trainer.mine_ref_scores`) the ref-score material supervision.
 `Trainer` runs
 the JAX Trainer's schedule of SH oneups, pair-capacity escalation on binning
 overflow, densify/prune with prune grace, the white-background kick, opacity
-resets, the normal-propagation resets with the opacity-LR toggle, and from the
-surfel2 onset the env-GS init, TSDF mesh extraction, the tracer-budget probe,
-env densify/prune/reset with the signal-counted grace, the env SH ladder and
-the extinction re-seed.
+resets, the normal-propagation resets with the opacity-LR toggle (past a
+volume stage with `dist_color`), the volume -> surfel material re-init, and
+from the surfel2 onset the env-GS init, TSDF mesh extraction, the
+tracer-budget probe, env densify/prune/reset with the signal-counted grace,
+the env SH ladder and the extinction re-seed.
 
 With PipelineParams.indirect_type "raytracing_residual" (the reference's
 other INDIRECT_TYPE flavor) `surfel2` spawns no env-GS model: its step shades
@@ -36,8 +38,7 @@ the groups.
 The port runs eagerly, so a step mutates the state in place where the JAX
 step returns a new one. With use_perceptual_loss the `surfel` and `surfel2`
 steps add the LPIPS term (train/lpips.py) past perceptual_loss_start_iter;
-without weights the Trainer degrades loudly, as the JAX Trainer does. The
-`volume` stage raises NotImplementedError naming the volume slice of the port.
+without weights the Trainer degrades loudly, as the JAX Trainer does.
 """
 from __future__ import annotations
 
@@ -57,18 +58,16 @@ from materialrefgs_torch.models.env_light import EnvLightMips, EnvLightParams
 from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
 from materialrefgs_torch.ops.tracer.api import TracerConfig
 from materialrefgs_torch.render.envgs import render_surfel2, tracer_demand_probe
-from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel
+from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel, render_volume
 from materialrefgs_torch.train import losses, warp
 from materialrefgs_torch.train.optim import Adam
 from materialrefgs_torch.train.stages import select_stage
 from materialrefgs_torch.utils.transforms import abs_, expon_lr
 
-STAGES = ("initial", "surfel", "surfel2")
+STAGES = ("initial", "volume", "surfel", "surfel2")
 INDIRECT_TYPES = ("origin", "raytracing_residual")
-
-
-def _volume_slice() -> NotImplementedError:
-    return NotImplementedError("volume training is not ported yet; it comes with the volume slice of the port")
+# Parameters the volume -> surfel transition re-initialises, moments zeroed.
+VOLUME_REINIT = ("ori_color", "refl_strength", "roughness")
 
 
 @dataclass
@@ -173,7 +172,7 @@ def normal_loss_weight_schedule(iteration: int, opt: OptimizationParams) -> floa
 
 
 class TrainStep:
-    """One optimization step of `initial`, `surfel` or `surfel2`, in two
+    """One optimization step of `initial`, `volume`, `surfel` or `surfel2`, in two
     halves so that the caller can look at the render before anything is
     updated: `render(state, camera, extra, mesh)` draws the view (with the
     screen-offset leaf of the densification statistics; `surfel2` traces the
@@ -210,7 +209,7 @@ class TrainStep:
         group=None,
     ):
         if stage not in STAGES:
-            raise _volume_slice()
+            raise ValueError(f"stage {stage!r} is not one of {STAGES}")
         if pipe.indirect_type not in INDIRECT_TYPES:
             raise ValueError(f"indirect_type {pipe.indirect_type!r} is not one of {INDIRECT_TYPES}")
         self.stage = stage
@@ -259,6 +258,14 @@ class TrainStep:
         offset = torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
         if self.stage == "initial":
             return render_initial(model, camera, extra["bg"], self.ropts, offset), offset
+        if self.stage == "volume":
+            # The volume stage shades each gaussian against env2's mips,
+            # rebuilt every step, differentiably (trainer.py:204-209).
+            mips = EnvLightMips.build(
+                state.env2, n_samples=self.envmap_n_samples,
+                min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
+            )
+            return render_volume(model, camera, extra["bg"], mips, self.ropts, offset), offset
         # The mips are rebuilt from env1 every step, differentiably
         # (trainer.py:210-213).
         mips = EnvLightMips.build(
@@ -349,7 +356,7 @@ class TrainStep:
         loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
         tb["loss_normal_render_depth"] = ln
 
-        if opt.use_env_scope and self.stage in ("surfel", "surfel2"):
+        if opt.use_env_scope and self.stage in ("surfel", "surfel2", "volume"):
             # Penalize refl_strength outside the scene sphere
             # (train_refnerf.py:1022-1027, 1335-1338; weight 0.4).
             center = torch.tensor(opt.env_scope_center, dtype=torch.float32, device=model.device)
@@ -798,12 +805,10 @@ class Trainer:
         self._order = []
         for iteration in range(start_iter, start_iter + num_iters):
             stage = select_stage(iteration, opt)
-            if stage not in STAGES:
-                raise _volume_slice()
-            if iteration == opt.volume_render_until_iter + 1 and opt.volume_render_until_iter > opt.init_until_iter:
-                raise _volume_slice()  # the volume -> surfel material re-init
             if stage == "surfel2":
                 self._surfel2_onset(iteration)
+            if iteration == opt.volume_render_until_iter + 1 and opt.volume_render_until_iter > opt.init_until_iter:
+                self._volume_to_surfel()
 
             # SH degree ladder (train_refnerf.py:1109-1111).
             if iteration > opt.feature_rest_from_iter and iteration % opt.sh_ladder_interval == 0:
@@ -867,15 +872,31 @@ class Trainer:
             self._tracer_presized = True
             self._presize_tracer_capacity(iteration)
 
+    def _volume_to_surfel(self):
+        """The volume -> surfel transition (reset_gaussian_para,
+        train_refnerf.py:1152-1153, :1508-1521; trainer.py:872-885): albedo
+        re-drawn around 0.5, reflection strength 0.1, roughness the preset's
+        init value, and their Adam moments zeroed."""
+        model = self.state.model
+        gm.reset_ori_color(model, self.generator)
+        gm.reset_refl_strength(model, 0.1)
+        gm.reset_roughness(model, self.opt.init_roughness_value)
+        for name in VOLUME_REINIT:
+            self.state.adam.zero_param(name)
+
     def _build_mips(self, env: EnvLightParams) -> EnvLightMips:
         with torch.no_grad():
             return EnvLightMips.build(env, n_samples=8, min_roughness=self.envmap_min_roughness,
                                       max_roughness=self.envmap_max_roughness)
 
     @torch.no_grad()
-    def _render_view(self, cam_id: int, mips: EnvLightMips) -> dict:
-        """A `surfel` render for the probe and the mesh (no gradient)."""
+    def _render_view(self, cam_id: int, mips: EnvLightMips, stage: str = "surfel") -> dict:
+        """A render without gradient: `surfel` for the probe and the mesh;
+        the visualisation renders a `volume`-stage view with render_volume
+        (mips from env2), as the JAX Trainer does (trainer.py:1300-1320)."""
         ropts = RenderOptions(unbiased_depth=self.pipe.unbiased_depth, raster=self.raster_cfg)
+        if stage == "volume":
+            return render_volume(self.state.model, self.cameras[cam_id], self.bg, mips, ropts)
         return render_surfel(self.state.model, self.cameras[cam_id], self.bg, mips, ropts)
 
     def _save_vis(self, iteration: int, cam_id: int, stage: str):
@@ -889,7 +910,8 @@ class Trainer:
 
         if stage == "initial":
             return
-        pkg = self._render_view(cam_id, self._build_mips(self.state.env1))
+        env = self.state.env2 if stage == "volume" else self.state.env1
+        pkg = self._render_view(cam_id, self._build_mips(env), stage)
         gt = _numpy(self.images[cam_id])
         render = np.clip(_numpy(pkg["render"]), 0, 1)
         normal = _numpy(pkg["rend_normal"]) * 0.5 + 0.5
@@ -1134,7 +1156,7 @@ class Trainer:
             outside = self._outside_msk()
             gm.reset_opacity1(st.model, exclusive_msk=outside)
             if iteration > opt.volume_render_until_iter > opt.init_until_iter:
-                raise _volume_slice()  # dist_color after a volume stage
+                gm.dist_color(st.model, self.generator, exclusive_msk=outside)
             gm.reset_scale(st.model, exclusive_msk=outside)
             st.adam.zero_param("opacity")
             st.adam.zero_param("scaling")

@@ -130,14 +130,9 @@ def main(argv=None) -> dict:
         iters = [int(d.split("_")[-1]) for d in os.listdir(pc_dir) if d.startswith("iteration_")]
         it = max(iters)
     # Mid-curriculum checkpoints evaluate on the path they trained with
-    # (select_render_method): initial / volume / deferred.
+    # (select_render_method): initial / volume (env2) / deferred.
     eval_stage = select_stage(it, opt)
-    if eval_stage == "volume":
-        raise NotImplementedError(
-            "volume-stage checkpoints are not ported yet; render_volume comes "
-            "with the volume slice of the port"
-        )
-    if eval_stage != "initial":
+    if eval_stage not in ("initial", "volume"):
         eval_stage = "surfel"
 
     scene = Scene.load(model_params, device=device)
@@ -150,9 +145,12 @@ def main(argv=None) -> dict:
         env1 = load_envlight_from_hdr(args.relight, res=model_params.envmap_max_res, device=device)
         print(f"Relighting with {args.relight}")
     env1 = env1 or EnvLightParams.create(model_params.envmap_max_res, device=device)
+    # A volume-stage checkpoint shades with env2 when the run saved it, else
+    # with env1 (scripts/eval.py:186-195).
+    shade_env = env2 if eval_stage == "volume" and env2 is not None else env1
     with torch.no_grad():
         mips = EnvLightMips.build(
-            env1,
+            shade_env,
             min_roughness=model_params.envmap_min_roughness,
             max_roughness=model_params.envmap_max_roughness,
         )

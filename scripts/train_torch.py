@@ -1,9 +1,10 @@
 """Training CLI of the PyTorch/CUDA port (the counterpart of scripts/train.py)
-for the three presets' curricula, stages `initial`, `surfel` and `surfel2`
-(env-GS traced indirect light, mesh visibility, exact-order tracing), on
-Blender-layout scenes (refnerf, glossy) and COLMAP scenes (refreal: a
-`sparse/0` model beside `images/`, PNG photos, `-r 4` by the preset). Runs on
-the CUDA card unless --device cpu is given.
+for the three presets' curricula, stages `initial`, `volume` (per-gaussian
+shading against env2, asked for with --volume_render_until_iter N), `surfel`
+and `surfel2` (env-GS traced indirect light, mesh visibility, exact-order
+tracing), on Blender-layout scenes (refnerf, glossy) and COLMAP scenes
+(refreal: a `sparse/0` model beside `images/`, PNG photos, `-r 4` by the
+preset). Runs on the CUDA card unless --device cpu is given.
 
 Usage:
   python scripts/train_torch.py -s /data/refnerf/helmet -m output/helmet
@@ -460,6 +461,8 @@ def _train(args, rank: int = 0, world: int = 1, coordinator: str | None = None) 
             with torch.no_grad():
                 mips = EnvLightMips.build(st.env1, min_roughness=model_params.envmap_min_roughness,
                                           max_roughness=model_params.envmap_max_roughness)
+            # As scripts/train.py does, a volume-stage mark is evaluated
+            # through the deferred `surfel` path with env1's mips.
             stage = select_stage(target, opt)
             surfel2 = stage == "surfel2"
             m = render_set(

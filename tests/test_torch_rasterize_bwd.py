@@ -194,3 +194,144 @@ def test_rasterize_grads_match_jax_multichunk():
 
     out = _compare_grads(arrays, 32, 32, rel=4e-3, loss=loss, jloss=jloss)
     assert int(out["n_contrib"].max()) > 128
+
+
+def _round_f32(x):
+    """The float32 nearest to the exact rational x, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    best = None
+    for c in (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))):
+        d = abs(Fraction(float(c)) - x)
+        key = (d, int(np.array(c).view(np.uint32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, c)
+    return best[1]
+
+
+def _fma_ref(a, b, c):
+    from fractions import Fraction
+
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def test_fma_f32_rounds_once():
+    """fma_f32 equals the exact a*b + c rounded once to float32, also where
+    the float64 sum lands on a float32 halfway point (there a float64 sum
+    rounded again to float32 is one ulp off)."""
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=2000).astype(np.float32) * np.float32(2.0) ** rng.integers(-20, 20, 2000).astype(np.float32)
+    b = rng.normal(size=2000).astype(np.float32)
+    c = rng.normal(size=2000).astype(np.float32) * np.float32(2.0) ** rng.integers(-20, 20, 2000).astype(np.float32)
+    # a*b = 2^-24 + 2^-60: 1 + a*b lies a hair above the halfway point
+    # between 1 and the next float32, which the float64 sum rounds onto.
+    ha, hb = np.float32(2.0**-12 * (1 + 2.0**-12)), np.float32(2.0**-12 * (1 - 2.0**-12 + 2.0**-24))
+    a = np.concatenate([a, [ha, -ha]]).astype(np.float32)
+    b = np.concatenate([b, [hb, hb]]).astype(np.float32)
+    c = np.concatenate([c, [1.0, -1.0]]).astype(np.float32)
+    got = tiles_bwd.fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    want = np.array([_fma_ref(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert list(got[-2:]) == [1 + 2.0**-23, -1 - 2.0**-23] and list(twice[-2:]) == [1.0, -1.0]
+
+
+def _butterfly_lanes(v):
+    """The CUDA kernel's warp sum of 12 rows (csrc/rasterize_bwd.cu reduce12),
+    lane by lane: v (32, 12) float32, the lanes' values; returns the 12 row
+    sums as the lanes that own them hold them."""
+
+    def halve(vals, n, bit, offset):
+        out = np.zeros((32, n), np.float32)
+        for lane in range(32):
+            hi = bool(lane & bit)
+            partner = lane ^ offset
+            for i in range(n):
+                keep = vals[lane][i + n] if hi else vals[lane][i]
+                got = vals[partner][i + n] if hi else vals[partner][i]  # what the partner sends
+                out[lane, i] = np.float32(keep + got)
+        return out
+
+    a = halve(v, 6, 16, 16)
+    b = np.concatenate([halve(a, 3, 8, 8), np.zeros((32, 1), np.float32)], axis=1)
+    c = halve(b, 2, 4, 4)
+    e = halve(c, 1, 2, 2)[:, 0]
+    e = np.float32(e + e[np.arange(32) ^ 1])
+    rows = np.zeros(12, np.float32)
+    for lane in range(32):
+        sub = (lane >> 1) & 3
+        if lane & 1 or sub == 3:
+            continue
+        rows[(6 if lane & 16 else 0) + (3 if lane & 8 else 0) + sub] = e[lane]
+    return rows
+
+
+def test_tiles_bwd_plain_sums_in_kernel_order(monkeypatch):
+    """The plain backward sums a pair's per-pixel terms in the CUDA kernel's
+    order, bit for bit: the 12 geometric rows by reduce12's butterfly within
+    each warp, then the warps in warp order from 0; the linear rows by fmaf
+    in pixel order. One 16x16 tile with a random cotangent of both signs,
+    so that the sums cancel and another order rounds differently."""
+    S = 5
+    arrays = random_scene(3, 80, S)
+    _, tc = cameras(16, 16)
+    geo_calls, lin_calls = [], []
+    real_geo, real_lin = tiles_bwd.warp_order_sum, tiles_bwd.pixel_order_dot
+
+    def geo(v):
+        out = real_geo(v)
+        geo_calls.append((v.clone(), out.clone()))
+        return out
+
+    def lin(w, dlin, tiles):
+        out = real_lin(w, dlin, tiles)
+        lin_calls.append((w.clone(), dlin[tiles].clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(tiles_bwd, "warp_order_sum", geo)
+    monkeypatch.setattr(tiles_bwd, "pixel_order_dot", lin)
+    captured = {}
+    real_bwd = tapi.rasterize_tiles_bwd
+
+    def bwd(*a, **kw):
+        captured["dpair"] = real_bwd(*a, **kw)
+        return captured["dpair"]
+
+    monkeypatch.setattr(tapi, "rasterize_tiles_bwd", bwd)
+    targs = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = tapi.rasterize(*targs, tc, torch.zeros(3), config=tapi.RasterizeConfig(pair_capacity=CAPACITY))
+    rng = np.random.default_rng(1)
+    loss = sum((out[k] * torch.from_numpy(rng.normal(size=tuple(out[k].shape)).astype(np.float32))).sum()
+               for k in ("render", "feature", "normal", "depth", "alpha", "distortion"))
+    torch.autograd.grad(loss, targs)
+    dpair = captured["dpair"].numpy()
+    n = len(geo_calls)
+    assert n > 40 and len(lin_calls) == 1
+
+    # Geometric rows: one call per position j = n-1 .. 0 of the one tile.
+    other_order = 0
+    for i, (v, got) in enumerate(geo_calls):
+        v, got = v[0].numpy(), got[0].numpy()  # (12, 256), (12,)
+        sums = np.zeros(12, np.float32)
+        for k in range(8):
+            sums = (sums + _butterfly_lanes(v[:, 32 * k : 32 * k + 32].T)).astype(np.float32)
+        want = sums
+        assert np.array_equal(got, want), i
+        assert np.array_equal(dpair[n - 1 - i, :ROW_LIN], want), i
+        other_order += int(np.sum(v.sum(axis=1, dtype=np.float32) != want))
+    # Linear rows: fmaf over the 256 pixels in order, for the rows whose
+    # pixel-order sum and plain float32 sum differ most (exact reference).
+    w, d, got = (x.numpy() for x in lin_calls[0])
+    plain = np.einsum("rp,rpk->rk", w, d, dtype=np.float32)
+    sel = np.argsort(-np.abs(plain - got).max(axis=1))[:6]
+    for r in sel:
+        for k in range(d.shape[-1]):
+            s = np.float32(0.0)
+            for p in range(256):
+                if w[r, p] != 0:
+                    s = _fma_ref(w[r, p], d[r, p, k], s)
+            assert got[r, k].view(np.uint32) == np.float32(s).view(np.uint32), (r, k)
+    assert np.array_equal(dpair[:n, ROW_LIN:][::-1], got)
+    # The order shows: torch.sum's order rounds these sums differently.
+    assert other_order > 0 and int(np.sum(plain != got)) > 0

@@ -238,33 +238,3 @@ def test_eval_colmap_scene_matches_jax(tmp_path, monkeypatch, same_texel_grid, p
     out = png.read_png(os.path.join(runs["torch"], "eval_7000", "test", "renders", "00000.png"))
     assert out.shape == (37, 53, 3) and float(out.std()) > 5  # the model is in view
     assert float(png.read_png(os.path.join(runs["torch"], "eval_7000", "test", "gt", "00000.png")).std()) > 10
-
-
-def _setup_volume_stage(root):
-    import dataclasses
-
-    from materialrefgs_torch import config as cfg
-
-    m, p, o = cfg.preset_refnerf()
-    cfg.dump_config(str(root), m, p, dataclasses.replace(o, initial=0, volume_render_until_iter=100))
-    (root / "point_cloud" / "iteration_50").mkdir(parents=True)
-    return []
-
-
-@pytest.mark.parametrize(
-    "setup,match",
-    [
-        (_setup_volume_stage, "volume"),
-    ],
-)
-def test_eval_refuses_what_the_slice_lacks(tmp_path, setup, match):
-    """A volume-stage checkpoint raises NotImplementedError naming the
-    volume slice; nothing else is rendered in its place. (--relight and
-    --export_material_mesh run now: tests/test_torch_relight.py,
-    tests/test_torch_mesh_material.py.)"""
-    spec = importlib.util.spec_from_file_location("eval_torch", os.path.join(REPO, "scripts", "eval_torch.py"))
-    eval_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(eval_torch)
-    extra = setup(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        eval_torch.main(["-m", str(tmp_path), "-s", str(tmp_path), "--device", "cpu", *extra])

@@ -301,13 +301,14 @@ def _gt_image(seed):
     return np.clip(rgb + 0.03 * rng.normal(size=rgb.shape), 0, 1).astype(np.float32)
 
 
-@pytest.mark.parametrize("stage,iteration", [("initial", 700), ("surfel", 3500)])
+@pytest.mark.parametrize("stage,iteration", [("initial", 700), ("surfel", 3500), ("volume", 3500)])
 def test_train_step_matches_jax(stage, iteration, same_texel_grid):
     """One step of make_train_step in both packages from the same state (a
     JAX state after one warm-up step, carried across by convert.py, so the
     Adam moments and step count are live): loss, every gradient leaf (read
     from the new first moments), the parameters after the update, and the
-    densification statistics."""
+    densification statistics. The volume step shades with env2 (random
+    here), the others with env1."""
     _, pipe, opt = jcfg.preset_refnerf()
     topt = tcfg.OptimizationParams(**dataclasses.asdict(opt))
     tpipe = tcfg.PipelineParams(**dataclasses.asdict(pipe))
@@ -315,7 +316,8 @@ def test_train_step_matches_jax(stage, iteration, same_texel_grid):
     jm = jax_model(9, sh_degree=1)
     jm = jm.replace(max_radii2d=jnp.zeros(CAP), xyz_gradient_accum=jnp.zeros(CAP), denom=jnp.zeros(CAP))
     js = jtr.init_train_state(jm, opt, envmap_res=32)
-    js = js.replace(env1=JEnv(base=jnp.asarray(rng.normal(size=(6, 32, 32, 3)).astype(np.float32))))
+    js = js.replace(env1=JEnv(base=jnp.asarray(rng.normal(size=(6, 32, 32, 3)).astype(np.float32))),
+                    env2=JEnv(base=jnp.asarray(rng.normal(size=(6, 32, 32, 3)).astype(np.float32))))
     kw = dict(eye=np.array([0.4, -0.5, -3.5]), target=np.zeros(3), up=np.array([0.0, 1.0, 0.0]),
               fovx=0.9, fovy=0.75, width=W, height=H)
     jc, tc = jax_camera(**kw), torch_camera(**kw, device="cpu")
@@ -373,10 +375,11 @@ def test_train_step_matches_jax(stage, iteration, same_texel_grid):
         err = np.abs(tparams[k] - jparams[k])
         assert np.all(err <= 2 * lrs[k] * dmu_hat / sq + 1e-6), f"param {k}: {err.max()}"
         n_nonzero += bool(np.abs(gj).max() > 0)
-        if k == "env1":
-            # The surfel step rebuilds the mips from env1 differentiably.
-            assert (np.abs(gj).max() > 0) == (stage == "surfel")
-    assert n_nonzero >= (8 if stage == "surfel" else 6)
+        if k in ("env1", "env2"):
+            # The surfel step rebuilds the mips from env1 differentiably,
+            # the volume step from env2.
+            assert (np.abs(gj).max() > 0) == (stage == {"env1": "surfel", "env2": "volume"}[k])
+    assert n_nonzero >= (6 if stage == "initial" else 8)
     for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
         a, b = getattr(ts.model, k).numpy(), np.asarray(getattr(js.model, k))
         np.testing.assert_allclose(a, b, atol=2e-3 * max(float(np.abs(b).max()), 1e-3) + 1e-6, err_msg=k)
@@ -482,9 +485,6 @@ def test_trainer_escalates_overflow_and_refuses_later_slices(monkeypatch, tmp_pa
     lp = ttr.Trainer(model, cams, images, dataclasses.replace(opt, use_perceptual_loss=True),
                      tcfg.PipelineParams())
     assert lp.lpips_disabled and not lp.opt.use_perceptual_loss and lp.lpips_weights is None
-    vol = dataclasses.replace(opt, initial=0, volume_render_until_iter=5)
-    with pytest.raises(NotImplementedError, match="volume"):
-        ttr.Trainer(model, cams, images, vol, tcfg.PipelineParams(), envmap_res=16).train(1)
 
 
 def _write_blender_scene(root, n_views=2, size=32, step=0.6):
