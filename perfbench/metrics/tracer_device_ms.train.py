@@ -1,0 +1,10 @@
+"""Device milliseconds a step spends in the splat tracer (`ops.tracer.api.trace`):
+the cull, the ranges and both kernels, with the backward's autograd node
+(`_TraceCoreBackward`)."""
+SPANS = [("materialrefgs_torch.ops.tracer.api", "trace", "tracer.trace")]
+
+
+def read(t):
+    if not t.has_span("tracer.trace"):
+        return None
+    return 1e3 * (t.span_device_s("tracer.trace") + t.backward_device_s("_TraceCoreBackward")) / t.units
