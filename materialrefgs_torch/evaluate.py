@@ -20,6 +20,7 @@ from materialrefgs_torch.ops.tracer.api import TracerConfig
 from materialrefgs_torch.render.envgs import render_surfel2
 from materialrefgs_torch.render.renderers import RenderOptions, render_initial, render_surfel, render_volume
 from materialrefgs_torch.train.losses import psnr, ssim
+from materialrefgs_torch.utils.logging_utils import count, span
 from materialrefgs_torch.utils.png import write_png
 
 
@@ -95,78 +96,81 @@ def render_set(
     redos = 0
 
     for idx, (cam, gt) in enumerate(zip(cameras, images)):
-        t0 = time.perf_counter()
-        pkg = run(cam, tracer_cfg)
-        # The JAX package serves a view whose traces overflow their budgets
-        # truncated; the port redoes it with budgets that fit. Two redos
-        # suffice: after the first the cluster budget fits, so the pair
-        # slots the second render reports are exact.
-        for _ in range(2):
-            if int(pkg.get("tracer_overflow", 0)) == 0:
-                break
-            tracer_cfg = fit_tracer_budgets(tracer_cfg, pkg)
-            print(
-                f"[info] eval view {idx}: tracer overflow {int(pkg['tracer_overflow'])}; "
-                f"redone at cluster_pair_capacity {tracer_cfg.cluster_pair_capacity}, "
-                f"pair_capacity {tracer_cfg.pair_capacity}"
-            )
-            redos += 1
+        with span("serve.view"):
+            t0 = time.perf_counter()
             pkg = run(cam, tracer_cfg)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        times.append(time.perf_counter() - t0)
-        overflows.append(int(pkg["overflow"]))
-        tracer_overflows.append(int(pkg.get("tracer_overflow", 0)))
-        if not cull_warned and int(pkg.get("mesh_cull_dropped", 0)) > 0:
-            print(
-                f"[warn] eval view {idx}: mesh pre-cull dropped "
-                f"{int(pkg['mesh_cull_dropped'])} occluder clusters — "
-                f"visibility maps are truncated; raise TracerConfig.mesh_cull_cap"
-            )
-            cull_warned = True
-        gt_t = torch.clamp(torch.as_tensor(gt, dtype=torch.float32, device=dev), 0.0, 1.0)
-        # Reference protocol clamps to [0,1] before every metric
-        # (eval.py:44-50); deferred specular can overshoot 1.
-        render_c = torch.clamp(pkg["render"], 0.0, 1.0)
-        psnrs.append(float(psnr(render_c, gt_t)))
-        ssims.append(float(ssim(render_c, gt_t)))
-        if lpips_net is not None:
-            with torch.no_grad():
-                lpipses.append(float(lpips_net(render_c, gt_t)))
-        if gt_normals is not None:
-            # GT-normal mean angular error in degrees over the foreground.
-            ng = np.asarray(gt_normals[idx], np.float32)
-            ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-8)
-            npred = _numpy(pkg["rend_normal"]).astype(np.float32)
-            npred = npred / np.maximum(np.linalg.norm(npred, axis=-1, keepdims=True), 1e-8)
-            m = (
-                np.asarray(gt_normal_masks[idx], np.float32)
-                if gt_normal_masks is not None
-                else _numpy(pkg["rend_alpha"])[..., 0] > 0.5
-            )
-            cosang = np.clip(np.sum(ng * npred, axis=-1), -1.0, 1.0)
-            ang = np.degrees(np.arccos(cosang))
-            normal_maes.append(float(np.sum(ang * m) / max(float(np.sum(m)), 1.0)))
+            # The JAX package serves a view whose traces overflow their budgets
+            # truncated; the port redoes it with budgets that fit. Two redos
+            # suffice: after the first the cluster budget fits, so the pair
+            # slots the second render reports are exact.
+            for _ in range(2):
+                if int(pkg.get("tracer_overflow", 0)) == 0:
+                    break
+                tracer_cfg = fit_tracer_budgets(tracer_cfg, pkg)
+                print(
+                    f"[info] eval view {idx}: tracer overflow {int(pkg['tracer_overflow'])}; "
+                    f"redone at cluster_pair_capacity {tracer_cfg.cluster_pair_capacity}, "
+                    f"pair_capacity {tracer_cfg.pair_capacity}"
+                )
+                redos += 1
+                pkg = run(cam, tracer_cfg)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+            overflows.append(int(pkg["overflow"]))
+            tracer_overflows.append(int(pkg.get("tracer_overflow", 0)))
+            if not cull_warned and int(pkg.get("mesh_cull_dropped", 0)) > 0:
+                print(
+                    f"[warn] eval view {idx}: mesh pre-cull dropped "
+                    f"{int(pkg['mesh_cull_dropped'])} occluder clusters — "
+                    f"visibility maps are truncated; raise TracerConfig.mesh_cull_cap"
+                )
+                cull_warned = True
+        with span("serve.metrics"):
+            gt_t = torch.clamp(torch.as_tensor(gt, dtype=torch.float32, device=dev), 0.0, 1.0)
+            # Reference protocol clamps to [0,1] before every metric
+            # (eval.py:44-50); deferred specular can overshoot 1.
+            render_c = torch.clamp(pkg["render"], 0.0, 1.0)
+            psnrs.append(float(psnr(render_c, gt_t)))
+            ssims.append(float(ssim(render_c, gt_t)))
+            if lpips_net is not None:
+                with torch.no_grad():
+                    lpipses.append(float(lpips_net(render_c, gt_t)))
+            if gt_normals is not None:
+                # GT-normal mean angular error in degrees over the foreground.
+                ng = np.asarray(gt_normals[idx], np.float32)
+                ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-8)
+                npred = _numpy(pkg["rend_normal"]).astype(np.float32)
+                npred = npred / np.maximum(np.linalg.norm(npred, axis=-1, keepdims=True), 1e-8)
+                m = (
+                    np.asarray(gt_normal_masks[idx], np.float32)
+                    if gt_normal_masks is not None
+                    else _numpy(pkg["rend_alpha"])[..., 0] > 0.5
+                )
+                cosang = np.clip(np.sum(ng * npred, axis=-1), -1.0, 1.0)
+                ang = np.degrees(np.arccos(cosang))
+                normal_maes.append(float(np.sum(ang * m) / max(float(np.sum(m)), 1.0)))
         if dump_maps:
-            base = os.path.join(out_dir, name)
-            save_png(f"{base}/renders/{idx:05d}.png", pkg["render"])
-            save_png(f"{base}/gt/{idx:05d}.png", gt_t)
-            save_png(f"{base}/normal/{idx:05d}.png", _numpy(pkg["rend_normal"]) * 0.5 + 0.5)
-            save_png(f"{base}/depth/{idx:05d}.png", depth_vis(pkg["surf_depth"]))
-            for key, fname in [
-                ("diffuse_map", "diffuse"),
-                ("specular_map", "specular"),
-                ("base_color_map", "albedo"),
-            ]:
-                if key in pkg:
-                    save_png(f"{base}/{fname}/{idx:05d}.png", pkg[key])
-            for key, fname in [
-                ("roughness_map", "roughness"),
-                ("refl_strength_map", "metallic"),
-                ("visibility", "visibility"),
-            ]:
-                if key in pkg:
-                    save_png(f"{base}/{fname}/{idx:05d}.png", _numpy(pkg[key])[..., 0])
+            with span("serve.png"):
+                base = os.path.join(out_dir, name)
+                save_png(f"{base}/renders/{idx:05d}.png", pkg["render"])
+                save_png(f"{base}/gt/{idx:05d}.png", gt_t)
+                save_png(f"{base}/normal/{idx:05d}.png", _numpy(pkg["rend_normal"]) * 0.5 + 0.5)
+                save_png(f"{base}/depth/{idx:05d}.png", depth_vis(pkg["surf_depth"]))
+                for key, fname in [
+                    ("diffuse_map", "diffuse"),
+                    ("specular_map", "specular"),
+                    ("base_color_map", "albedo"),
+                ]:
+                    if key in pkg:
+                        save_png(f"{base}/{fname}/{idx:05d}.png", pkg[key])
+                for key, fname in [
+                    ("roughness_map", "roughness"),
+                    ("refl_strength_map", "metallic"),
+                    ("visibility", "visibility"),
+                ]:
+                    if key in pkg:
+                        save_png(f"{base}/{fname}/{idx:05d}.png", _numpy(pkg[key])[..., 0])
 
     # Skip the first frame's wall time (kernel build and warm-up).
     fps = 1.0 / np.mean(times[1:]) if len(times) > 1 else 1.0 / max(times[0], 1e-9)
@@ -192,6 +196,7 @@ def fit_tracer_budgets(cfg: TracerConfig, pkg: dict) -> TracerConfig:
     """`cfg` with budgets that keep every pair `pkg` (a render_surfel2
     result) asked for, a quarter above it; pair_capacity in whole steps of
     1<<16 (the segment layout needs a multiple of 128). Never lowered."""
+    count("tracer.refit")
     step = 1 << 16
     pairs = -(-int(1.25 * pkg["tracer_pair_slots"]) // step) * step
     return dataclasses.replace(

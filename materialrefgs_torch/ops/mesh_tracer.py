@@ -33,6 +33,7 @@ import torch
 
 from materialrefgs_torch import resolve_device
 from materialrefgs_torch.ops.brdf_lut import sample_fg_lut
+from materialrefgs_torch.utils.logging_utils import span, spanned
 from materialrefgs_torch.utils.transforms import normalize, reflect
 
 TRI_CHUNK = 512
@@ -146,61 +147,76 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def _nearest_hit(v0, e1, e2, ok, gid, o, d, t_min, t_far, chunk):
+def _intersect(v0, e1, e2, o, d):
+    """Moller-Trumbore (jnp.cross's component formulas) of (nb, R, 3) rays
+    against (nb, 1, C, 3) triangles. Returns a, u, v, t (nb, R, C)."""
+    ox, oy, oz = (o[..., i : i + 1] for i in range(3))  # (nb, R, 1)
+    dx, dy, dz = (d[..., i : i + 1] for i in range(3))
+    ax, ay, az = (v0[..., i] for i in range(3))  # (nb, 1, C)
+    e1x, e1y, e1z = (e1[..., i] for i in range(3))
+    e2x, e2y, e2z = (e2[..., i] for i in range(3))
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = _dot3(e1x, e1y, e1z, hx, hy, hz)
+    zero = torch.zeros((), device=a.device)
+    f = torch.where(torch.abs(a) > 1e-9, 1.0 / torch.where(a == 0, torch.ones_like(a), a), zero)
+    sx, sy, sz = ox - ax, oy - ay, oz - az
+    u = f * _dot3(sx, sy, sz, hx, hy, hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * _dot3(dx, dy, dz, qx, qy, qz)
+    t = f * _dot3(e2x, e2y, e2z, qx, qy, qz)
+    return a, u, v, t
+
+
+def _keep_nearest(best, hits, ok, gid, t_min, t_far):
+    """The carry of _nearest_hit: each ray's first minimum among a chunk's
+    hits replaces best (t, tri, u, v; None before the first chunk) where its
+    t is strictly smaller."""
+    a, u, v, t = hits
+    if best is None:
+        nb, R = t.shape[:2]
+        best = (torch.full((nb, R), float("inf"), device=t.device),
+                torch.full((nb, R), -1, dtype=torch.int32, device=t.device),
+                torch.zeros((nb, R), device=t.device), torch.zeros((nb, R), device=t.device))
+    best_t, best_tri, best_u, best_v = best
+    hit = ok & (torch.abs(a) > 1e-9) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t < t_far)
+    t = torch.where(hit, t, torch.full((), float("inf"), device=t.device))
+    j = torch.argmin(t, dim=-1, keepdim=True)  # first minimum
+    tc = torch.gather(t, -1, j)[..., 0]
+    better = tc < best_t
+    gids = torch.gather(gid, 1, j[..., 0])
+    best_tri = torch.where(better, gids.to(torch.int32), best_tri)
+    best_u = torch.where(better, torch.gather(u, -1, j)[..., 0], best_u)
+    best_v = torch.where(better, torch.gather(v, -1, j)[..., 0], best_v)
+    return torch.minimum(best_t, tc), best_tri, best_u, best_v
+
+
+def _nearest_hit(v0, e1, e2, ok, gid, o, d, t_min, t_far, chunk, out, rows):
     """Nearest hit of (nb, R, 3) rays against per-block triangle lists
     v0/e1/e2 (nb, Tn, 3), ok (nb, Tn), gid (nb, Tn) global ids, walked in
     chunks of `chunk` triangles with the JAX package's carry: a later chunk
-    wins only with a strictly smaller t. Returns t, tri, u, v (nb, R)."""
-    nb, R = o.shape[:2]
-    dev = o.device
-    best_t = torch.full((nb, R), float("inf"), device=dev)
-    best_tri = torch.full((nb, R), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((nb, R), device=dev)
-    best_v = torch.zeros((nb, R), device=dev)
-    ox, oy, oz = (o[..., i : i + 1] for i in range(3))  # (nb, R, 1)
-    dx, dy, dz = (d[..., i : i + 1] for i in range(3))
-    inf = torch.full((), float("inf"), device=dev)
-    zero = torch.zeros((), device=dev)
+    wins only with a strictly smaller t. Writes t, tri, u, v (nb, R) into
+    the blocks `rows` of the four arrays `out`."""
+    best = None
+    last = range(0, v0.shape[1], chunk)[-1]
     for c0 in range(0, v0.shape[1], chunk):
         sl = slice(c0, c0 + chunk)
-        ax, ay, az = (v0[:, None, sl, i] for i in range(3))  # (nb, 1, C)
-        e1x, e1y, e1z = (e1[:, None, sl, i] for i in range(3))
-        e2x, e2y, e2z = (e2[:, None, sl, i] for i in range(3))
-        # Moller-Trumbore (jnp.cross's component formulas).
-        hx = dy * e2z - dz * e2y
-        hy = dz * e2x - dx * e2z
-        hz = dx * e2y - dy * e2x
-        a = _dot3(e1x, e1y, e1z, hx, hy, hz)
-        f = torch.where(torch.abs(a) > 1e-9, 1.0 / torch.where(a == 0, torch.ones_like(a), a), zero)
-        sx, sy, sz = ox - ax, oy - ay, oz - az
-        u = f * _dot3(sx, sy, sz, hx, hy, hz)
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        v = f * _dot3(dx, dy, dz, qx, qy, qz)
-        t = f * _dot3(e2x, e2y, e2z, qx, qy, qz)
-        hit = (
-            ok[:, None, sl] & (torch.abs(a) > 1e-9) & (u >= 0.0) & (v >= 0.0)
-            & (u + v <= 1.0) & (t >= t_min) & (t < t_far)
-        )
-        t = torch.where(hit, t, inf)
-        j = torch.argmin(t, dim=-1, keepdim=True)  # first minimum
-        tc = torch.gather(t, -1, j)[..., 0]
-        better = tc < best_t
-        gids = torch.gather(gid[:, sl], 1, j[..., 0])
-        best_tri = torch.where(better, gids.to(torch.int32), best_tri)
-        best_u = torch.where(better, torch.gather(u, -1, j)[..., 0], best_u)
-        best_v = torch.where(better, torch.gather(v, -1, j)[..., 0], best_v)
-        best_t = torch.minimum(best_t, tc)
-    return best_t, best_tri, best_u, best_v
+        with span("mesh_tracer.hit"):
+            hits = _intersect(v0[:, None, sl], e1[:, None, sl], e2[:, None, sl], o, d)
+            with span("mesh_tracer.nearest"):
+                best = _keep_nearest(best, hits, ok[:, None, sl], gid[:, sl], t_min, t_far)
+                del hits  # the chunk's (nb, R, C) intersections, freed inside the span
+                if c0 == last:
+                    for dst, src in zip(out, best):
+                        dst[rows] = src
 
 
-def _culled_blocks(mesh: MeshData, o, d, t_min, t_far, cap):
-    """Cluster AABB pre-cull + nearest hit for (nb, R, 3) ray blocks.
-    Returns t, tri, u, v (nb, R) and the dropped clusters per block (nb,)."""
-    nb, R = o.shape[:2]
-    NC = mesh.n_clusters
-    dev = o.device
+def _cluster_hits(mesh: MeshData, o, d, t_min, t_far):
+    """Cluster AABB pre-cull for (nb, R, 3) ray blocks: (nb, NC) whether
+    any ray of the block meets the cluster's box."""
     # Ray-AABB slab test. Axis-parallel directions use a large finite
     # reciprocal (1e12): inf would make 0*inf NaN on boundary origins.
     d_safe = torch.where(
@@ -215,8 +231,15 @@ def _culled_blocks(mesh: MeshData, o, d, t_min, t_far, cap):
     hit_c = (tf >= torch.clamp(tn, min=t_min)) & (tn <= t_far)
     # Padding clusters (lo=+inf, hi=-inf) pass the slab test for every ray.
     cluster_ok = torch.all(mesh.cluster_lo <= mesh.cluster_hi, dim=-1)
-    any_hit = torch.any(hit_c, dim=1) & cluster_ok[None]  # (nb, NC)
+    return torch.any(hit_c, dim=1) & cluster_ok[None]
 
+
+def _survivors(mesh: MeshData, any_hit, cap):
+    """The triangles of each block's surviving clusters, as _nearest_hit
+    takes them (v0, e1, e2, ok, gid), the chunk that walks them at once, and
+    the clusters dropped beyond `cap` per block (nb,)."""
+    nb, NC = any_hit.shape
+    dev = any_hit.device
     ids = torch.arange(NC, dtype=torch.int32, device=dev)
     idx = torch.where(any_hit, ids[None], torch.full_like(ids, NC)[None])
     n_surv = torch.sum(any_hit.to(torch.int32), dim=1)
@@ -237,13 +260,10 @@ def _culled_blocks(mesh: MeshData, o, d, t_min, t_far, cap):
 
     oks = gather(mesh.valid) & live.repeat_interleave(CLUSTER, dim=1)
     gids = (safe[..., None] * CLUSTER + torch.arange(CLUSTER, device=dev)).reshape(nb, -1)
-    t, tri, u, v = _nearest_hit(
-        gather(mesh.v0), gather(mesh.e1), gather(mesh.e2), oks, gids, o, d, t_min, t_far,
-        chunk=keep * CLUSTER,
-    )
-    return t, tri, u, v, n_dropped
+    return (gather(mesh.v0), gather(mesh.e1), gather(mesh.e2), oks, gids), keep * CLUSTER, n_dropped
 
 
+@spanned("mesh_tracer.trace")
 def trace(
     mesh: MeshData,
     rays_o: torch.Tensor,  # (..., 3)
@@ -289,7 +309,6 @@ def trace(
     v = torch.zeros((n_blk, per_block), device=dev)
     active = torch.nonzero(mask).squeeze(1)
 
-    cull_dropped = 0
     if use_cull:
         gran = TRI_CHUNK // CLUSTER
         cap = cull_cap or min(NC, 64)
@@ -298,35 +317,45 @@ def trace(
     else:
         per_blk_bytes = 4 * per_block * TRI_CHUNK * 12
     step = max(1, BATCH_BYTES // per_blk_bytes)
+    # Each batch of blocks is spans of a few dozen ops (cull, select, hit
+    # with nearest inside it), each freeing its temporaries and storing its
+    # results before it ends, so that a trace names the owner of the host's
+    # time between the ops. The dropped clusters are summed on the device.
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(0, active.numel(), step):
-        blk = active[i : i + step]
-        o_b, d_b = ob[blk], db[blk]
-        if use_cull:
-            res = _culled_blocks(mesh, o_b, d_b, t_min, t_far, cap)
-            cull_dropped += int(res[4].sum())
-        else:
-            nb = blk.numel()
-            gid = torch.arange(mesh.n_tris, dtype=torch.int32, device=dev)
-            res = _nearest_hit(
-                mesh.v0.expand(nb, -1, -1), mesh.e1.expand(nb, -1, -1), mesh.e2.expand(nb, -1, -1),
-                mesh.valid.expand(nb, -1), gid.expand(nb, -1), o_b, d_b, t_min, t_far, TRI_CHUNK,
-            )
-        t[blk], tri[blk], u[blk], v[blk] = res[:4]
-    t, tri, u, v = (x.reshape(-1)[:R] for x in (t, tri, u, v))
+        with span("mesh_tracer.cull"):
+            blk = active[i : i + step]
+            o_b, d_b = ob[blk], db[blk]
+            any_hit = _cluster_hits(mesh, o_b, d_b, t_min, t_far) if use_cull else None
+        with span("mesh_tracer.select"):
+            if use_cull:
+                tris, chunk, n_dropped = _survivors(mesh, any_hit, cap)
+                dropped = dropped + n_dropped.sum()
+            else:
+                nb = blk.numel()
+                gid = torch.arange(mesh.n_tris, dtype=torch.int32, device=dev)
+                tris = (mesh.v0.expand(nb, -1, -1), mesh.e1.expand(nb, -1, -1), mesh.e2.expand(nb, -1, -1),
+                        mesh.valid.expand(nb, -1), gid.expand(nb, -1))
+                chunk = TRI_CHUNK
+            del any_hit
+        _nearest_hit(*tris, o_b, d_b, t_min, t_far, chunk, (t, tri, u, v), blk)
+        del tris
+    with span("mesh_tracer.output"):
+        t, tri, u, v = (x.reshape(-1)[:R] for x in (t, tri, u, v))
 
-    hit = tri >= 0
-    t_out = torch.where(hit, t, torch.full_like(t, t_far))
-    o, d = o[:R], d[:R]
-    pos = o + t_out[:, None] * d
-    nrm = torch.where(hit[:, None], mesh.normal[torch.clamp(tri, min=0).long()], torch.zeros((), device=dev))
-    return {
-        "pos": pos.reshape(*shape, 3),
-        "normal": nrm.reshape(*shape, 3),
-        "depth": t_out.reshape(shape),
-        "tri": torch.where(hit, tri, torch.full_like(tri, -1)).reshape(shape),
-        "bary": torch.stack([u, v], -1).reshape(*shape, 2),
-        "cull_dropped": cull_dropped,
-    }
+        hit = tri >= 0
+        t_out = torch.where(hit, t, torch.full_like(t, t_far))
+        o, d = o[:R], d[:R]
+        pos = o + t_out[:, None] * d
+        nrm = torch.where(hit[:, None], mesh.normal[torch.clamp(tri, min=0).long()], torch.zeros((), device=dev))
+        return {
+            "pos": pos.reshape(*shape, 3),
+            "normal": nrm.reshape(*shape, 3),
+            "depth": t_out.reshape(shape),
+            "tri": torch.where(hit, tri, torch.full_like(tri, -1)).reshape(shape),
+            "bary": torch.stack([u, v], -1).reshape(*shape, 2),
+            "cull_dropped": int(dropped),
+        }
 
 
 def interpolate_attr(mesh: MeshData, name: str, tri: torch.Tensor, bary: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from materialrefgs_torch.ops.rasterize.layout import (
 from materialrefgs_torch.ops.rasterize.preprocess import PreprocessOut, preprocess
 from materialrefgs_torch.ops.rasterize.tiles_bwd import grad_rows, rasterize_tiles_bwd
 from materialrefgs_torch.ops.rasterize.tiles_fwd import rasterize_tiles_fwd
+from materialrefgs_torch.utils.logging_utils import span, spanned
 
 
 @dataclass(frozen=True)
@@ -169,51 +170,53 @@ def _sorted_inputs(
     grid_y = (H + TILE - 1) // TILE
     S = features.shape[-1]
 
-    pre = preprocess(means3d, scales, rotations, camera, scale_modifier)
-    if mean2d_offset is not None:
-        # Screen-space translation probe (the reference's screenspace_points
-        # trick, api.py:237-250 of the JAX package). A +delta screen shift of
-        # the splat homography is exactly Tu += dx*Tw, Tv += dy*Tw, and mean2d
-        # feeds the low-pass branch, so the offset's gradient is the full
-        # pixel-unit screen-translation gradient of both per-pixel branches.
-        dx = mean2d_offset[:, 0:1]
-        dy = mean2d_offset[:, 1:2]
-        T = pre.T_rows
-        T = torch.stack([T[:, 0, :] + dx * T[:, 2, :], T[:, 1, :] + dy * T[:, 2, :], T[:, 2, :]], dim=1)
-        pre = pre._replace(mean2d=pre.mean2d + mean2d_offset, T_rows=T)
-    valid = pre.valid
-    row0 = 0
-    if rows is not None:
-        row0, grid_y = rows
-        lo = pre.rect_min.clone()
-        hi = pre.rect_max.clone()
-        lo[:, 1] = torch.clamp(lo[:, 1] - row0, 0, grid_y)
-        hi[:, 1] = torch.clamp(hi[:, 1] - row0, 0, grid_y)
-        nxy = torch.clamp(hi - lo, min=0)
-        tiles = (nxy[:, 0] * nxy[:, 1]).to(pre.tiles_touched.dtype)
-        valid = valid & (tiles > 0)
-        pre = pre._replace(rect_min=lo, rect_max=hi, tiles_touched=tiles)
-    # Gaussians with opacity < 1/255 can never pass the per-pixel alpha test
-    # (forward.cu:397); cull them so dead fixed-capacity slots cost no pairs.
-    valid = valid & (opacities >= (1.0 / 255.0))
-    pre = pre._replace(
-        valid=valid,
-        tiles_touched=torch.where(valid, pre.tiles_touched, torch.zeros_like(pre.tiles_touched)),
-        radius=torch.where(valid, pre.radius, torch.zeros_like(pre.radius)),
-    )
+    with span("rasterize.preprocess"):
+        pre = preprocess(means3d, scales, rotations, camera, scale_modifier)
+        if mean2d_offset is not None:
+            # Screen-space translation probe (the reference's screenspace_points
+            # trick, api.py:237-250 of the JAX package). A +delta screen shift of
+            # the splat homography is exactly Tu += dx*Tw, Tv += dy*Tw, and mean2d
+            # feeds the low-pass branch, so the offset's gradient is the full
+            # pixel-unit screen-translation gradient of both per-pixel branches.
+            dx = mean2d_offset[:, 0:1]
+            dy = mean2d_offset[:, 1:2]
+            T = pre.T_rows
+            T = torch.stack([T[:, 0, :] + dx * T[:, 2, :], T[:, 1, :] + dy * T[:, 2, :], T[:, 2, :]], dim=1)
+            pre = pre._replace(mean2d=pre.mean2d + mean2d_offset, T_rows=T)
+        valid = pre.valid
+        row0 = 0
+        if rows is not None:
+            row0, grid_y = rows
+            lo = pre.rect_min.clone()
+            hi = pre.rect_max.clone()
+            lo[:, 1] = torch.clamp(lo[:, 1] - row0, 0, grid_y)
+            hi[:, 1] = torch.clamp(hi[:, 1] - row0, 0, grid_y)
+            nxy = torch.clamp(hi - lo, min=0)
+            tiles = (nxy[:, 0] * nxy[:, 1]).to(pre.tiles_touched.dtype)
+            valid = valid & (tiles > 0)
+            pre = pre._replace(rect_min=lo, rect_max=hi, tiles_touched=tiles)
+        # Gaussians with opacity < 1/255 can never pass the per-pixel alpha test
+        # (forward.cu:397); cull them so dead fixed-capacity slots cost no pairs.
+        valid = valid & (opacities >= (1.0 / 255.0))
+        pre = pre._replace(
+            valid=valid,
+            tiles_touched=torch.where(valid, pre.tiles_touched, torch.zeros_like(pre.tiles_touched)),
+            radius=torch.where(valid, pre.radius, torch.zeros_like(pre.radius)),
+        )
 
-    # Depth sort over gaussians (stable: ties keep index order, like CUDA's
-    # radix sort).
-    order = torch.argsort(pre.depth, stable=True)
-    inv_order = torch.argsort(order)
+    with span("rasterize.sort"):
+        # Depth sort over gaussians (stable: ties keep index order, like CUDA's
+        # radix sort).
+        order = torch.argsort(pre.depth, stable=True)
+        inv_order = torch.argsort(order)
 
-    def sort_by_depth(a):
-        return _Permute.apply(a, order, inv_order) if a.is_floating_point() else a[order]
+        def sort_by_depth(a):
+            return _Permute.apply(a, order, inv_order) if a.is_floating_point() else a[order]
 
-    pre_s = PreprocessOut(*(sort_by_depth(a) for a in pre))
-    opac_s = sort_by_depth(opacities)
-    bins = binning.bin_pairs(pre_s, grid_x, grid_y, config.pair_capacity, opacities=opac_s, row0=row0)
-    payload_g = _build_payload(pre_s, opac_s, sort_by_depth(colors), sort_by_depth(features), S)
+        pre_s = PreprocessOut(*(sort_by_depth(a) for a in pre))
+        opac_s = sort_by_depth(opacities)
+        bins = binning.bin_pairs(pre_s, grid_x, grid_y, config.pair_capacity, opacities=opac_s, row0=row0)
+        payload_g = _build_payload(pre_s, opac_s, sort_by_depth(colors), sort_by_depth(features), S)
     return _SortedInputs(payload_g, bins, pre, S, grid_x, grid_y, W, H, row0)
 
 
@@ -235,6 +238,7 @@ def tile_inputs(
     return TileInputs(_gather_pairs(si.payload_g, si.bins.g_sorted), *si[1:-1])
 
 
+@spanned("rasterize.tiles")
 def _render(si: _SortedInputs) -> torch.Tensor:
     """Step 4: (grid_y * grid_x, 256, C_OUT) tile outputs."""
     return _RenderPairs.apply(
@@ -272,6 +276,7 @@ def _unpack(tiles_out, S, grid_x, grid_y, W, H, bg_color):
     }
 
 
+@spanned("rasterize")
 def rasterize(
     means3d: torch.Tensor,
     scales: torch.Tensor,

@@ -34,6 +34,7 @@ from materialrefgs_torch.ops.tracer.layout import (
 )
 from materialrefgs_torch.ops.tracer.trace_bwd import trace_bundles_bwd
 from materialrefgs_torch.ops.tracer.trace_fwd import new_residual, trace_bundles_fwd
+from materialrefgs_torch.utils.logging_utils import span, spanned
 from materialrefgs_torch.utils.transforms import normalize, quat_to_rotmat
 
 CLUSTER = 256
@@ -232,6 +233,7 @@ def trace_demand(
     return int(okg.sum()) + cluster_overflow
 
 
+@spanned("tracer.trace")
 def trace(
     rays_o: torch.Tensor,  # (N, 3); N must be a multiple of 256
     rays_d: torch.Tensor,  # (N, 3)
@@ -267,15 +269,17 @@ def trace(
     rd = rays_d.reshape(NB, NRAY, 3)
     B = config.pair_capacity
     with torch.no_grad():
-        gauss, b_of, t_proj, okg, cluster_overflow = _cull(
-            ro.detach(), rd.detach(), means3d.detach(), scales.detach(), opacities.detach(), config,
-            bundle_mask,
-        )
-        okg_f = okg.reshape(-1)
-        seg = build_aligned_segments(b_of.reshape(-1), t_proj.reshape(-1), okg_f, NB, B)
-        gauss_f = gauss.reshape(-1)
-        pair_gauss = scatter_pairs(torch.where(okg_f, gauss_f, torch.zeros_like(gauss_f)), seg.perm_pos, B)
-        pair_valid = scatter_pairs(okg_f, seg.perm_pos, B, fill=False)
+        with span("tracer.cull"):
+            gauss, b_of, t_proj, okg, cluster_overflow = _cull(
+                ro.detach(), rd.detach(), means3d.detach(), scales.detach(), opacities.detach(), config,
+                bundle_mask,
+            )
+        with span("tracer.segments"):
+            okg_f = okg.reshape(-1)
+            seg = build_aligned_segments(b_of.reshape(-1), t_proj.reshape(-1), okg_f, NB, B)
+            gauss_f = gauss.reshape(-1)
+            pair_gauss = scatter_pairs(torch.where(okg_f, gauss_f, torch.zeros_like(gauss_f)), seg.perm_pos, B)
+            pair_valid = scatter_pairs(okg_f, seg.perm_pos, B, fill=False)
 
     # Per-pair payload (pay_rows(n_sh), B + 128): geometry rows + raw SH rows
     # (channel-major), gathered in one gather from a (13 + 3*n_sh, P)

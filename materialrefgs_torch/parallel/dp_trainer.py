@@ -19,6 +19,7 @@ import torch.distributed as dist
 
 from materialrefgs_torch.parallel.data_parallel import make_dp_production_step
 from materialrefgs_torch.train.trainer import Trainer
+from materialrefgs_torch.utils.logging_utils import span
 
 
 class DPTrainer(Trainer):
@@ -62,23 +63,24 @@ class DPTrainer(Trainer):
     def _run_step(self, iteration: int, stage: str) -> dict:
         # Every rank draws every rank's view and its warp in order, so the
         # rng and the generator stay in step; each keeps its own view's.
-        cam_ids = [self._pick_view() for _ in range(self.world)]
-        gate = self._warp_gate(iteration, stage)
-        views = []
-        for cid in cam_ids:
-            extra, warp_on, near_id = self._view_extra(iteration, stage, cid)
-            if gate and not warp_on:
-                # The warp is batch-uniform once the gate is open (JAX
-                # dp_trainer.py:63-77): a view without a neighbour warps onto
-                # itself with photo weight 0 (an identity homography).
-                cam = self.cameras[cid]
-                uniforms = torch.rand(cam.height * cam.width, generator=self.generator, device=cam.device)
-                extra.update(nearest_camera=cam, nearest_gt=self.images[cid], warp_photo_weight=0.0,
-                             warp_uniforms=uniforms)
-                warp_on = True
-            views.append((cid, extra, warp_on, near_id))
-        cid, extra, warp_on, near_id = views[self.rank]
-        self._last_cam_id = cam_ids[0]
+        with span("trainer.pick"):
+            cam_ids = [self._pick_view() for _ in range(self.world)]
+            gate = self._warp_gate(iteration, stage)
+            views = []
+            for cid in cam_ids:
+                extra, warp_on, near_id = self._view_extra(iteration, stage, cid)
+                if gate and not warp_on:
+                    # The warp is batch-uniform once the gate is open (JAX
+                    # dp_trainer.py:63-77): a view without a neighbour warps onto
+                    # itself with photo weight 0 (an identity homography).
+                    cam = self.cameras[cid]
+                    uniforms = torch.rand(cam.height * cam.width, generator=self.generator, device=cam.device)
+                    extra.update(nearest_camera=cam, nearest_gt=self.images[cid], warp_photo_weight=0.0,
+                                 warp_uniforms=uniforms)
+                    warp_on = True
+                views.append((cid, extra, warp_on, near_id))
+            cid, extra, warp_on, near_id = views[self.rank]
+            self._last_cam_id = cam_ids[0]
         metrics = self._render_and_update(iteration, stage, cid, extra, warp_on, near_id)
         metrics["dp_cam"] = cid
         return metrics

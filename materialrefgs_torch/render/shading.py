@@ -21,6 +21,7 @@ import torch
 
 from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.ops.brdf_lut import sample_fg_lut
+from materialrefgs_torch.utils.logging_utils import spanned
 from materialrefgs_torch.utils.transforms import normalize, reflect
 
 
@@ -36,6 +37,7 @@ def camera_rays_world(camera: Camera, unnormalized: bool = False):
     return d_world, camera.camera_center
 
 
+@spanned("shading")
 def specular_color_surfel(
     envmap,  # EnvLightMips
     albedo: torch.Tensor,  # (H, W, 3)
@@ -82,6 +84,7 @@ def specular_color_surfel(
     return specular, extras
 
 
+@spanned("shading")
 def full_color_volume(
     envmap,  # EnvLightMips
     xyz: torch.Tensor,  # (P, 3)

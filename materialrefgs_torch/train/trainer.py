@@ -62,6 +62,7 @@ from materialrefgs_torch.render.renderers import RenderOptions, render_initial, 
 from materialrefgs_torch.train import losses, warp
 from materialrefgs_torch.train.optim import Adam
 from materialrefgs_torch.train.stages import select_stage
+from materialrefgs_torch.utils.logging_utils import backward_spans, count, span, spanned
 from materialrefgs_torch.utils.transforms import abs_, expon_lr
 
 STAGES = ("initial", "volume", "surfel", "surfel2")
@@ -242,6 +243,7 @@ class TrainStep:
                  mesh=None) -> dict:
         return self.update(state, camera, gt, extra, self.render(state, camera, extra, mesh))
 
+    @spanned("TrainStep.render")
     def render(self, state: TrainState, camera: Camera, extra: dict, mesh=None) -> tuple[dict, torch.Tensor]:
         """(the render package, the screen-offset leaf it was drawn with)."""
         pkg, offset = self._render_main(state, camera, extra, mesh)
@@ -249,8 +251,9 @@ class TrainStep:
             # The warp reads only geometry and material maps, none of which
             # depends on shading, the env-GS trace or the mesh: the nearest
             # view is rendered geometry-only (trainer.py:259-269).
-            pkg["nearest_pkg"] = render_surfel(state.model, extra["nearest_camera"], extra["bg"], None,
-                                               self.ropts, wo_render_img=True)
+            with span("warp.nearest_render"):
+                pkg["nearest_pkg"] = render_surfel(state.model, extra["nearest_camera"], extra["bg"], None,
+                                                   self.ropts, wo_render_img=True)
         return pkg, offset
 
     def _render_main(self, state: TrainState, camera: Camera, extra: dict, mesh) -> tuple[dict, torch.Tensor]:
@@ -261,17 +264,19 @@ class TrainStep:
         if self.stage == "volume":
             # The volume stage shades each gaussian against env2's mips,
             # rebuilt every step, differentiably (trainer.py:204-209).
-            mips = EnvLightMips.build(
-                state.env2, n_samples=self.envmap_n_samples,
-                min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
-            )
+            with span("envlight.mips"):
+                mips = EnvLightMips.build(
+                    state.env2, n_samples=self.envmap_n_samples,
+                    min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
+                )
             return render_volume(model, camera, extra["bg"], mips, self.ropts, offset), offset
         # The mips are rebuilt from env1 every step, differentiably
         # (trainer.py:210-213).
-        mips = EnvLightMips.build(
-            state.env1, n_samples=self.envmap_n_samples,
-            min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
-        )
+        with span("envlight.mips"):
+            mips = EnvLightMips.build(
+                state.env1, n_samples=self.envmap_n_samples,
+                min_roughness=self.env_min_roughness, max_roughness=self.env_max_roughness,
+            )
         if self.residual:
             pkg = render_surfel(model, camera, extra["bg"], mips, self.ropts, offset, mesh=mesh,
                                 mesh_cull_cap=self.tracer_cfg.mesh_cull_cap)
@@ -284,15 +289,17 @@ class TrainStep:
             return pkg, offset
         return render_surfel(model, camera, extra["bg"], mips, self.ropts, offset), offset
 
+    @spanned("TrainStep.update")
     def update(self, state: TrainState, camera: Camera, gt: torch.Tensor, extra: dict,
                rendered: tuple[dict, torch.Tensor]) -> dict:
         pkg, offset = rendered
         opt, model = self.opt, state.model
         it = float(extra["iteration"])
-        image_weight = None
-        if not opt.wo_image_weight:
-            image_weight = torch.clamp(1.0 - losses.get_img_grad_weight(gt), 0, 1) ** 2
-        loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight, self.lpips_weights)
+        with span("losses"):
+            image_weight = None
+            if not opt.wo_image_weight:
+                image_weight = torch.clamp(1.0 - losses.get_img_grad_weight(gt), 0, 1) ** 2
+            loss, tb = losses.calculate_loss(gt, pkg, self.lopt, it, image_weight, self.lpips_weights)
 
         if self.with_warp:
             # Multi-view warp losses (calc_warp_loss, train_refnerf.py:414).
@@ -319,60 +326,61 @@ class TrainStep:
             tb["loss_warp_mtl"] = wl.metallic_warp_loss
             tb["loss_warp_rgh"] = wl.roughness_warp_loss
 
-        if self.stage in ("surfel", "surfel2") and "ref_score_mask" in extra:
-            # Reflection-score material supervision (train_refreal.py:1237-1263):
-            # inside the mask metallic -> 0.9 and roughness -> 0.05, the
-            # inverse outside, plus albedo smoothness in the mask.
-            gate_rs = float(it > opt.ref_score_start_iter)
-            rs = extra["ref_score_mask"][..., None]  # (H, W, 1)
-            refl_m, rough_m = pkg["refl_strength_map"], pkg["roughness_map"]
+        with span("losses"):
+            if self.stage in ("surfel", "surfel2") and "ref_score_mask" in extra:
+                # Reflection-score material supervision (train_refreal.py:1237-1263):
+                # inside the mask metallic -> 0.9 and roughness -> 0.05, the
+                # inverse outside, plus albedo smoothness in the mask.
+                gate_rs = float(it > opt.ref_score_start_iter)
+                rs = extra["ref_score_mask"][..., None]  # (H, W, 1)
+                refl_m, rough_m = pkg["refl_strength_map"], pkg["roughness_map"]
 
-            def masked_mean(x, m):
-                return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+                def masked_mean(x, m):
+                    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
 
-            lrs = masked_mean(abs_(refl_m - 0.9), rs)
-            lrs = lrs + masked_mean(abs_(rough_m - 0.05), rs)
-            lrs = lrs + masked_mean(abs_(refl_m - 0.05), 1.0 - rs)
-            lrs = lrs * opt.ref_score_loss_weight
-            lrs = lrs + 0.5 * opt.ref_score_loss_weight * masked_mean(abs_(0.9 - rough_m), 1.0 - rs)
-            lrs = lrs + losses.smooth_loss_simple(pkg["base_color_map"] * rs)
-            loss = loss + gate_rs * lrs
-            tb["loss_ref_score"] = lrs
+                lrs = masked_mean(abs_(refl_m - 0.9), rs)
+                lrs = lrs + masked_mean(abs_(rough_m - 0.05), rs)
+                lrs = lrs + masked_mean(abs_(refl_m - 0.05), 1.0 - rs)
+                lrs = lrs * opt.ref_score_loss_weight
+                lrs = lrs + 0.5 * opt.ref_score_loss_weight * masked_mean(abs_(0.9 - rough_m), 1.0 - rs)
+                lrs = lrs + losses.smooth_loss_simple(pkg["base_color_map"] * rs)
+                loss = loss + gate_rs * lrs
+                tb["loss_ref_score"] = lrs
 
-        if "normal_prior" in extra:
-            # Monocular normal prior (mono_normal_loss, train_refnerf.py:202).
-            l1s, coss, l1r, cosr = warp.mono_normal_loss(
-                camera, pkg["surf_normal"], pkg["rend_normal"], extra["normal_prior"], extra.get("image_mask"))
-            loss = loss + float(extra["normal_gamma"]) * opt.mono_normal_coef * (l1s + l1r + coss + cosr)
-            tb["loss_mono_normal"] = l1s + l1r
+            if "normal_prior" in extra:
+                # Monocular normal prior (mono_normal_loss, train_refnerf.py:202).
+                l1s, coss, l1r, cosr = warp.mono_normal_loss(
+                    camera, pkg["surf_normal"], pkg["rend_normal"], extra["normal_prior"], extra.get("image_mask"))
+                loss = loss + float(extra["normal_gamma"]) * opt.mono_normal_coef * (l1s + l1r + coss + cosr)
+                tb["loss_mono_normal"] = l1s + l1r
 
-        # Iteration-dependent normal-consistency weight (ladder).
-        gate = float(it > opt.normal_loss_start)
-        rn, sn = pkg["rend_normal"], pkg["surf_normal"]
-        if image_weight is not None:
-            ln = torch.mean(image_weight * torch.sum(abs_(sn - rn), dim=-1))
-        else:
-            ln = torch.mean(1.0 - torch.sum(rn * sn, dim=-1))
-        loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
-        tb["loss_normal_render_depth"] = ln
+            # Iteration-dependent normal-consistency weight (ladder).
+            gate = float(it > opt.normal_loss_start)
+            rn, sn = pkg["rend_normal"], pkg["surf_normal"]
+            if image_weight is not None:
+                ln = torch.mean(image_weight * torch.sum(abs_(sn - rn), dim=-1))
+            else:
+                ln = torch.mean(1.0 - torch.sum(rn * sn, dim=-1))
+            loss = loss + gate * float(extra["lambda_normal_render_depth"]) * ln
+            tb["loss_normal_render_depth"] = ln
 
-        if opt.use_env_scope and self.stage in ("surfel", "surfel2", "volume"):
-            # Penalize refl_strength outside the scene sphere
-            # (train_refnerf.py:1022-1027, 1335-1338; weight 0.4).
-            center = torch.tensor(opt.env_scope_center, dtype=torch.float32, device=model.device)
-            outside = (torch.sum((model.xyz - center) ** 2, dim=-1) > opt.env_scope_radius**2) & model.alive
-            denom = torch.clamp(torch.sum(outside), min=1).to(torch.float32)
-            refl_msk_loss = torch.sum(model.get_refl[:, 0] * outside) / denom
-            loss = loss + 0.4 * refl_msk_loss
-            tb["loss_refl_msk"] = refl_msk_loss
+            if opt.use_env_scope and self.stage in ("surfel", "surfel2", "volume"):
+                # Penalize refl_strength outside the scene sphere
+                # (train_refnerf.py:1022-1027, 1335-1338; weight 0.4).
+                center = torch.tensor(opt.env_scope_center, dtype=torch.float32, device=model.device)
+                outside = (torch.sum((model.xyz - center) ** 2, dim=-1) > opt.env_scope_radius**2) & model.alive
+                denom = torch.clamp(torch.sum(outside), min=1).to(torch.float32)
+                refl_msk_loss = torch.sum(model.get_refl[:, 0] * outside) / denom
+                loss = loss + 0.4 * refl_msk_loss
+                tb["loss_refl_msk"] = refl_msk_loss
 
-        if self.stage in ("surfel", "surfel2") and "image_mask" in extra:
-            # Mask entropy after the volume stage (train_refnerf.py:1211-1220).
-            o = torch.clamp(pkg["rend_alpha"][..., 0], 1e-6, 1 - 1e-6)
-            msk = extra["image_mask"]
-            ent = -torch.mean(msk * torch.log(o) + (1 - msk) * torch.log(1 - o))
-            loss = loss + 0.01 * ent
-            tb["loss_mask_entropy"] = ent
+            if self.stage in ("surfel", "surfel2") and "image_mask" in extra:
+                # Mask entropy after the volume stage (train_refnerf.py:1211-1220).
+                o = torch.clamp(pkg["rend_alpha"][..., 0], 1e-6, 1 - 1e-6)
+                msk = extra["image_mask"]
+                ent = -torch.mean(msk * torch.log(o) + (1 - msk) * torch.log(1 - o))
+                loss = loss + 0.01 * ent
+                tb["loss_mask_entropy"] = ent
 
         # One backward over the main model, both cubemaps, in surfel2 the
         # env-GS model, and the screen offset.
@@ -382,7 +390,9 @@ class TrainStep:
         env_params = state.env_params() if self.stage == "surfel2" and not self.residual else {}
         env_names = list(env_params)
         leaves += [env_params[k] for k in env_names]
-        grads = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
+        with span("update.backward"):
+            backward_spans(loss)
+            grads = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
         # The screen-offset gradient stays this view's own: the densification
         # statistics sum each view's norm (add_densification_stats).
         goff = grads[-1] if grads[-1] is not None else torch.zeros_like(offset)
@@ -403,34 +413,37 @@ class TrainStep:
             metrics["mesh_cull_dropped"] = int(pkg["mesh_cull_dropped"])
         if self.group is not None:
             grads = self._all_reduce(grads[:-1], leaves, metrics) + (goff,)
-        lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
-        state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
-        gm.add_densification_stats(
-            model, goff, pkg["radii"].detach(),
-            ndc_scale=(0.5 * camera.width, 0.5 * camera.height), group=self.group,
-        )
-        state.step += 1
+        with span("update.adam"):
+            lrs = param_lrs(opt, self.spatial_lr_scale, state.step, state.opacity_lr_scale)
+            state.adam.step(params, dict(zip(names, grads[: len(names)])), lrs)
+            gm.add_densification_stats(
+                model, goff, pkg["radii"].detach(),
+                ndc_scale=(0.5 * camera.width, 0.5 * camera.height), group=self.group,
+            )
+            state.step += 1
 
-        if self.stage == "surfel2" and not self.residual:
-            # The env-GS model's own Adam. Its learning rates read the step
-            # after the increment (trainer.py:461), without the opacity-LR
-            # toggle; freeze_geo scales xyz and scaling, not rotation
-            # (trainer.py:465-468).
-            egrads = dict(zip(env_names, grads[len(names) : len(names) + len(env_names)]))
-            elrs = param_lrs(opt, self.spatial_lr_scale, state.step)
-            fz = float(extra.get("env_geo_lr_scale", 1.0))
-            elrs["xyz"] *= fz
-            elrs["scaling"] *= fz
-            state.env_adam.step(env_params, egrads, elrs)
-            # Under data parallelism gx is the averaged gradient (trainer.py:471-475).
-            gx = egrads["xyz"] if egrads["xyz"] is not None else torch.zeros_like(env_params["xyz"])
-            gm.add_env_stats(state.env_gs, gx)
-            # The largest env-GS gradients this step (zero: the trace gave
-            # the env cloud no learning signal).
-            for name, keys in (("xyz", ("xyz",)), ("opacity", ("opacity",)),
-                               ("sh", ("features_dc", "features_rest"))):
-                metrics[f"env_grad_{name}"] = max(
-                    float(egrads[k].abs().max()) if egrads[k] is not None else 0.0 for k in keys)
+            if self.stage == "surfel2" and not self.residual:
+                # The env-GS model's own Adam. Its learning rates read the step
+                # after the increment (trainer.py:461), without the opacity-LR
+                # toggle; freeze_geo scales xyz and scaling, not rotation
+                # (trainer.py:465-468).
+                egrads = dict(zip(env_names, grads[len(names) : len(names) + len(env_names)]))
+                elrs = param_lrs(opt, self.spatial_lr_scale, state.step)
+                fz = float(extra.get("env_geo_lr_scale", 1.0))
+                elrs["xyz"] *= fz
+                elrs["scaling"] *= fz
+                state.env_adam.step(env_params, egrads, elrs)
+                # Under data parallelism gx is the averaged gradient (trainer.py:471-475).
+                gx = egrads["xyz"] if egrads["xyz"] is not None else torch.zeros_like(env_params["xyz"])
+                gm.add_env_stats(state.env_gs, gx)
+                # The largest env-GS gradients this step (zero: the trace gave
+                # the env cloud no learning signal), kept on the device: the
+                # Trainer reads them at its log steps.
+                zero = torch.zeros((), device=model.device)
+                for name, keys in (("xyz", ("xyz",)), ("opacity", ("opacity",)),
+                                   ("sh", ("features_dc", "features_rest"))):
+                    metrics[f"env_grad_{name}"] = torch.stack(
+                        [egrads[k].abs().max() if egrads[k] is not None else zero for k in keys]).max()
         return metrics
 
     # Metrics summed over the ranks; every other metric is averaged.
@@ -751,9 +764,10 @@ class Trainer:
         return counts
 
     def _run_step(self, iteration: int, stage: str) -> dict:
-        cam_id = self._pick_view()
-        self._last_cam_id = cam_id
-        extra, warp_on, near_id = self._view_extra(iteration, stage, cam_id)
+        with span("trainer.pick"):
+            cam_id = self._pick_view()
+            self._last_cam_id = cam_id
+            extra, warp_on, near_id = self._view_extra(iteration, stage, cam_id)
         return self._render_and_update(iteration, stage, cam_id, extra, warp_on, near_id)
 
     def _render_and_update(self, iteration: int, stage: str, cam_id: int, extra: dict, warp_on: bool,
@@ -788,6 +802,7 @@ class Trainer:
                 break
             dropped, tracer_dropped, renders = dropped + overflow, tracer_dropped + tracer_overflow, renders + 1
             del rendered, pkg  # free the truncated render's graph before redoing it
+            count("trainer.redo")
             rendered = self._step_fn(stage, warp_on).render(self.state, cam, extra, mesh)
         metrics = self._step_fn(stage, warp_on).update(self.state, cam, self.images[cam_id], extra, rendered)
         # Renders that dropped pairs and were redone, and the pairs they
@@ -801,9 +816,15 @@ class Trainer:
         return metrics
 
     def train(self, num_iters: int, start_iter: int = 1, log_every: int = 100):
-        opt = self.opt
         self._order = []
         for iteration in range(start_iter, start_iter + num_iters):
+            with span("Trainer.train"):
+                self._iteration(iteration, start_iter, log_every)
+        return self.state
+
+    def _iteration(self, iteration: int, start_iter: int, log_every: int):
+        opt = self.opt
+        with span("trainer.upkeep"):
             stage = select_stage(iteration, opt)
             if stage == "surfel2":
                 self._surfel2_onset(iteration)
@@ -814,7 +835,9 @@ class Trainer:
             if iteration > opt.feature_rest_from_iter and iteration % opt.sh_ladder_interval == 0:
                 self.state.model.oneup_sh_degree()
 
-            metrics = self._run_step(iteration, stage)
+        metrics = self._run_step(iteration, stage)
+        st = self.state
+        with span("trainer.upkeep"):
             if self.detect_anomaly:
                 # Debug mode (trainer.py:896-911): a report naming each
                 # nonfinite gradient group.
@@ -824,7 +847,6 @@ class Trainer:
                     raise FloatingPointError(
                         f"anomaly at iteration {iteration} (stage {stage}, cam {self._last_cam_id}): nonfinite "
                         "values in " + ", ".join(f"{k} ({v} entries)" for k, v in sorted(bad.items())))
-            st = self.state
             if stage == "surfel2" and st.env_gs is not None:
                 if metrics["tracer_pairs"] > 0:
                     self._env_signal_steps += 1
@@ -846,6 +868,7 @@ class Trainer:
                 self._extract_mesh(iteration)
             self._densify_and_reset(iteration, stage)
 
+        with span("trainer.log"):
             if self.vis_dir and iteration % self.vis_every == 0:
                 self._save_vis(iteration, self._last_cam_id, stage)
 
@@ -858,7 +881,6 @@ class Trainer:
                     m["env_n_alive"] = int(st.env_gs.n_alive)
                 m["wall"] = time.time()
                 self.metrics_log.append(m)
-        return self.state
 
     def _surfel2_onset(self, iteration: int):
         """At the first surfel2 iteration: the env-GS model, the mesh, and the

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.config import OptimizationParams
 from materialrefgs_torch.train.losses import lncc, spatial_gradient
+from materialrefgs_torch.utils.logging_utils import spanned
 from materialrefgs_torch.utils.transforms import abs_, clip, normalize
 
 
@@ -183,6 +184,7 @@ def reprojection(camera: Camera, nearest_camera: Camera, depth: torch.Tensor, ne
     return torch.sqrt(torch.sum(dproj * dproj, dim=-1) + eps), d_mask
 
 
+@spanned("warp.calc_warp_loss")
 def calc_warp_loss(
     camera: Camera,
     nearest_camera: Camera,
