@@ -97,7 +97,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      views each step with the warp off and on, alternating, every step from
      the same snapshot of the state (host clock, peak memory), and one
      profiled step of each kind per view (busy share, top kernels, the
-     rasterizer's launches); (b) 10 `surfel` steps (51-60) from
+     rasterizer's launches); the warp sampler's gather and splat at one
+     paired warp step's calls against the plain expression (the gather bit
+     for bit) and its autograd gradients, with times and bounds, and its
+     launches in (a) counted per warp step; (b) 10 `surfel` steps (51-60) from
      phase 7's iteration_50 PLY with every warp term, virtual cameras, the
      normal priors (--metric3d_path) and masks mined at 55
      (--ref_score_path auto): each term non-zero at least once, the mining
@@ -122,9 +125,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      surfel2 step with LPIPS (busy share, top kernels); every loss term
      finite, the distortion, warp, ref-score and perceptual terms each
      non-zero once, no step applied truncated, no lpips_disabled, the train
-     PSNR up; (c) all four kernels at a surfel2 step's inputs at 1236x821
-     against their plain versions (the forward kernels bit for bit), with
-     times and bounds; (d) scripts/eval_torch.py serves the 3 test views;
+     PSNR up; (c) all four kernels and the warp sampler's pair at a surfel2
+     step's inputs at 1236x821 against their plain versions (the forward
+     kernels bit for bit), with times and bounds; (d) scripts/eval_torch.py
+     serves the 3 test views;
  17. the other indirect-light flavors and the material outputs at full width
      (phase 7's scene and iteration-50 PLY): (a) scripts/train_torch.py
      --indirect_type raytracing_residual, 15 `surfel2` steps from the onset
@@ -172,8 +176,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      140 (--volume_render_until_iter 130, --multi_view_weight_from_iter
      140; no surfel2; the opacity reset off, densify every 10 steps, one
      normal-propagation reset at 140 with dist_color); counts zeroed just
-     before, read just after; the stage sequence, finite losses, no step
-     applied truncated, the volume window's train PSNR up by >= 0.3 dB;
+     before, read just after (the warp sampler's per warp step); the stage
+     sequence, finite losses, no step applied truncated, the volume
+     window's train PSNR up by >= 0.3 dB;
      iteration 130 served through scripts/eval_torch.py (render_volume with
      env2, equal to a direct render_set of the same PLY) and 150 (surfel);
      both rasterizer kernels at one volume step's inputs (S = 5) against
@@ -182,7 +187,9 @@ Phases (any failure exits non-zero before the result lines are printed):
 The second-to-last line is the kernels' JSON record (launches from phase 16's
 run (b) and phase 19 (a)'s --dp 1 run, plus for the rasterizer phase 17's
 runs (a) and (b) and phase 20's run; times and bounds from phase 16 (c), the
-JPEG kernel's at phase 16's photo 0); the last line is {"ok": true,
+JPEG kernel's at phase 16's photo 0; the warp sampler's launches from phase
+15 (a), phase 16 (b) and phase 20, its times and bounds at phase 15's paired
+step); the last line is {"ok": true,
 "device": {...}}. The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -860,6 +867,126 @@ def raster_at(np, torch, what, cap):
     return nums
 
 
+def warp_launches_per_step(opt):
+    """The warp sampler's launches (forward, backward) in one Trainer step
+    with the warp on: forward the depth sample, the NCC's four patches, the
+    two base-colour patches, and with a material term the mask and each
+    term's two patches; backward each sample whose map or coordinates reach
+    the loss: the depth sample (geo term), the nearest view's grey patch
+    (NCC), its base colour and each material term's nearest map."""
+    ncc = opt.use_warp_ncc_loss and opt.multi_view_ncc_weight > 0 and opt.use_multi_view_trim
+    n_mat = int(opt.use_metallic_warp_loss) + int(opt.use_roughness_warp_loss)
+    return 3 + 4 * ncc + (1 + 2 * n_mat if n_mat else 0), int(opt.use_warp_geo_loss) + int(ncc) + 1 + n_mat
+
+
+def capture_warp(torch, fn):
+    """Run fn() and return (map, coordinates, output gradient, needs map,
+    needs coordinates) for every warp-sampler backward it makes
+    (WarpSample.backward): the map and the coordinates as the Function
+    saved them (a channel slice keeps its strides), the gradient copied."""
+    from materialrefgs_torch.ops import warp_sample as ws
+
+    captured = []
+    real = ws.WarpSample.__dict__["backward"]
+
+    def backward(ctx, grad):
+        img, coords = ctx.saved_tensors
+        captured.append((img.detach(), coords.detach(), grad.detach().clone(), *ctx.needs_input_grad))
+        return real.__func__(ctx, grad)
+
+    ws.WarpSample.backward = staticmethod(backward)
+    try:
+        fn()
+    finally:
+        ws.WarpSample.backward = real
+    return captured
+
+
+def grad_err_ratio(torch, got, want, tol, what):
+    """The largest |got - want| and |got - want| / tol over the finite
+    values of want; raises where NaN or an infinity sits elsewhere in got
+    or where a ratio passes 1."""
+    check(torch.equal(torch.isnan(got), torch.isnan(want)), f"{what}: NaN at other entries")
+    fin = torch.isfinite(want)
+    check(torch.equal(got[~fin & ~torch.isnan(want)], want[~fin & ~torch.isnan(want)]), f"{what}: infinities differ")
+    diff = (got[fin] - want[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ratio = float((diff / tol[fin]).max()) if diff.numel() else 0.0
+    check(ratio <= 1.0, f"{what}: largest err/tol {ratio:.3e}")
+    return err, ratio
+
+
+def warp_sample_at(np, torch, caps, what):
+    """The warp sampler's kernels at one training step's captured calls
+    (capture_warp): each gather against the plain expression bit for bit
+    (NaN where it has NaN); each splat against the plain expression's
+    autograd gradients, the map's within 2^-14 of each texel's sum of its
+    terms' magnitudes (the atomics sum in no fixed order), the coordinates'
+    within the warp tolerance (rtol 1e-4, atol 1e-6 x max(|grad|, 1)); each
+    kernel's time (CUDA events over 20 launches), the plain versions' (timed
+    in the comparison run: the forward, and the forward with its autograd
+    backward) and the bound by bytes: the coordinates (8 B each), the
+    output or its gradient (C floats each) and the map once, plus the
+    coordinates' gradient and a second read of the map where asked for.
+    Returns the numbers of the call with the most samples (coordinates x
+    channels), with the largest error and err/tol over all calls."""
+    from materialrefgs_torch.ops import warp_sample as ws
+
+    rows = []
+    for i, (img, coords, g, need_map, need_coords) in enumerate(caps):
+        (H, W, C), M = img.shape, coords.shape[0]
+        res = {}
+        out = ws.warp_sample_fwd(img, coords)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            f_plain = cuda_ms(torch, lambda: res.update(ref=ws.grid_sample_plain(img, coords)), 1)
+        ref = res.pop("ref")
+        n_diff = int((~((out == ref) | (torch.isnan(out) & torch.isnan(ref)))).sum())
+        check(n_diff == 0, f"{what}, call {i}: the gather differs from the plain expression on {n_diff} values")
+        del out, ref
+        kw = dict(need_map=need_map, need_coords=need_coords)
+        dm, dc = ws.warp_sample_bwd(img, coords, g, **kw)
+        torch.cuda.synchronize()
+        b_plain = cuda_ms(torch, lambda: res.update(ref=ws.grid_sample_plain_grads(img, coords, g, **kw)), 1)
+        rm, rc = res.pop("ref")
+        errs, ratios = [], []
+        if need_map:
+            mag, _ = ws.grid_sample_plain_grads(img, coords, g.abs(), need_map=True, need_coords=False)
+            e, r = grad_err_ratio(torch, dm, rm, 2.0**-14 * mag + 1e-30, f"{what}, call {i}: map gradient")
+            errs.append(e)
+            ratios.append(r)
+            del mag
+        if need_coords:
+            fin = torch.isfinite(rc)
+            scale = max(float(rc[fin].abs().max()) if fin.any() else 0.0, 1.0)
+            e, r = grad_err_ratio(torch, dc, rc, 1e-4 * rc.abs() + 1e-6 * scale, f"{what}, call {i}: coordinate gradient")
+            errs.append(e)
+            ratios.append(r)
+        del dm, dc, rm, rc
+        fwd_fn = lambda: ws.warp_sample_fwd(img, coords)  # noqa: E731
+        bwd_fn = lambda: ws.warp_sample_bwd(img, coords, g, **kw)  # noqa: E731
+        for fn in (fwd_fn, bwd_fn):
+            fn()
+        f_ms, b_ms = cuda_ms(torch, fwd_fn, 20), cuda_ms(torch, bwd_fn, 20)
+        map_b = 4 * H * W * C
+        f_bytes = 8 * M + 4 * M * C + map_b
+        b_bytes = 8 * M + 4 * M * C + map_b * need_map + (8 * M + map_b) * need_coords
+        row = dict(n=M * C, fwd=dict(ms=f_ms, plain_ms=f_plain, bound=f_bytes / PEAK_BYTES_PER_S * 1e3, err=0.0),
+                   bwd=dict(ms=b_ms, plain_ms=b_plain, bound=b_bytes / PEAK_BYTES_PER_S * 1e3, err=max(errs),
+                            ratio=max(ratios)))
+        rows.append(row)
+        print(f"  warp sampler at {what}, call {i}: map {H}x{W}x{C} (strides {tuple(img.stride())}), {M} coordinates, "
+              f"gradient of the map {need_map}, of the coordinates {need_coords}: gather bit for bit; splat err/tol "
+              f"{max(ratios):.3e} (largest err {max(errs):.3e}); kernel ms gather {f_ms:.4f} (bound {row['fwd']['bound']:.4f}"
+              f", bytes), splat {b_ms:.4f} (bound {row['bwd']['bound']:.4f}, bytes); plain ms {f_plain:.2f}, with its "
+              f"autograd backward {b_plain:.2f}")
+    check(len(rows) > 0, f"{what}: no warp-sampler backward captured")
+    top = max(rows, key=lambda r: r["n"])
+    nums = {k: dict(top[k], err=max(r[k]["err"] for r in rows)) for k in ("fwd", "bwd")}
+    nums["bwd"]["ratio"] = max(r["bwd"]["ratio"] for r in rows)
+    return nums
+
+
 def jpeg_split(torch, dev, path):
     """One photo's decode in its four parts, each timed on its own: the host
     entropy decode (markers and csrc/jpeg_entropy.cpp), the copy of the
@@ -997,6 +1124,7 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     from materialrefgs_torch.models import gaussian_io
     from materialrefgs_torch.models.env_light import EnvLightMips
     from materialrefgs_torch.models.scene import Scene
+    from materialrefgs_torch.ops import warp_sample as ws
     from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.tracer import api as tracer_api
     from materialrefgs_torch.ops.tracer import trace_bwd, trace_fwd
@@ -1005,7 +1133,7 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     from materialrefgs_torch.utils import jpeg
 
     kernels = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd, trace_fwd.trace_bundles_fwd,
-               trace_bwd.trace_bundles_bwd, jpeg.idct_color)
+               trace_bwd.trace_bundles_bwd, jpeg.idct_color, ws.warp_sample_fwd, ws.warp_sample_bwd)
     # (a) the scene. fy sets a 0.8 rad vertical field of view; fx is 1 %
     # shorter, the principal point a few pixels off centre.
     scene_dir = os.path.join(work_dir, "refreal_scene")
@@ -1148,6 +1276,13 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     check(all(m["overflow"] == 0 and m.get("nearest_overflow", 0) == 0 and m.get("tracer_overflow", 0) == 0
               and m.get("mesh_cull_dropped", 0) == 0 for m in log), "a refreal step was applied truncated")
     check(all(n > 0 for n in launches.values()), "a kernel of the refreal path never launched")
+    # The sampler: per warp step as warp_launches_per_step counts, plus the
+    # mining's gathers (no backward).
+    n_warp = sum(m["warp_on"] for m in log)
+    ws_step = warp_launches_per_step(opt)
+    check(launches["warp_sample_bwd"] == ws_step[1] * n_warp and launches["warp_sample_fwd"] >= ws_step[0] * n_warp,
+          f"the warp sampler launched {launches['warp_sample_fwd']} gathers and {launches['warp_sample_bwd']} splats "
+          f"in {n_warp} warp steps, expected {ws_step} a step (more gathers with the mining)")
     for name, prm in list(tr.state.params().items()) + [("env." + k, v) for k, v in tr.state.env_params().items()]:
         check(bool(torch.isfinite(prm).all()), f"non-finite parameter {name} after the refreal run")
     with open(os.path.join(out_dir, "cfg_args.json")) as f:
@@ -1254,12 +1389,16 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
                       cot.clone()), dict(kw)))
         return real_tbwd(payload, rays, seg_start, seg_count, seg_active, fwd_out, cot, **kw)
 
+    wcap = []
     tracer_api.trace_bundles_bwd = capturing_bwd
     try:
-        rcap = capture_raster(torch, api, lambda: tr._run_step(it + 2, "surfel2"))
+        rcap = capture_raster(torch, api, lambda: wcap.extend(capture_warp(torch, lambda: tr._run_step(it + 2,
+                                                                                                        "surfel2"))))
     finally:
         tracer_api.trace_bundles_bwd = real_tbwd
     check(len(tcap) == 1 and len(rcap) >= 1, f"the captured step launched the tracer backward {len(tcap)} times")
+    check(len(wcap) == ws_step[1] and any(c[4] for c in wcap),
+          f"the captured step made {len(wcap)} warp-sampler backward calls, not {ws_step[1]} with a coordinate gradient")
     # The view's own render (S = 10) where the warp's geometry-only render of
     # its neighbour is captured beside it.
     main_cap = max(rcap, key=lambda c: c[1]["S"])
@@ -1267,6 +1406,8 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     del rcap, main_cap
     trace = tracer_at(np, torch, tcap[0], f"refreal surfel2 step {it + 2}, {W}x{H}")
     del tcap
+    warp = warp_sample_at(np, torch, wcap, f"refreal surfel2 step {it + 2}, {W}x{H}")
+    del wcap
 
     # (d) serve the test views through the eval CLI.
     for fn in kernels:
@@ -1282,8 +1423,8 @@ def refreal_phase(np, torch, dev, smi_line, model, mips, work_dir, train_torch, 
     print(f"refreal path (phase 16, {smi_line}): s/step {', '.join(f'{k} {v:.4f}' for k, v in stretch.items())}; "
           f"LPIPS fwd {f_ms:.2f} ms, fwd+bwd {fb_ms:.2f} ms; busy {100 * busy / prof_ms:.1f} %; peak {peak:.2f} GiB; "
           f"mining {mine_s:.2f} s; TSDF {mesh_s:.1f} s; serve {ev['fps']:.2f} views/s")
-    return dict(launches=launches, raster=raster, trace=trace, jpeg=jpeg_nums, sparse=sparse, loader_s=dec + rsz,
-                decode_ms=med)
+    return dict(launches=launches, raster=raster, trace=trace, warp=warp, jpeg=jpeg_nums, sparse=sparse,
+                loader_s=dec + rsz, decode_ms=med)
 
 
 def sky_latlong(np, H, W, seed=0):
@@ -1982,13 +2123,14 @@ def volume_phase(np, torch, dev, smi_line, ctx):
     from materialrefgs_torch.models import gaussian_io
     from materialrefgs_torch.models.env_light import EnvLightMips
     from materialrefgs_torch.models.scene import Scene
+    from materialrefgs_torch.ops import warp_sample as ws
     from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.rasterize.api import RasterizeConfig
     from materialrefgs_torch.render.renderers import RenderOptions
     from materialrefgs_torch.train.trainer import init_train_state
 
     t_phase = time.perf_counter()
-    fns = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd)
+    fns = (tiles_fwd.rasterize_tiles_fwd, tiles_bwd.rasterize_tiles_bwd, ws.warp_sample_fwd, ws.warp_sample_bwd)
     scene_dir, run_dir = ctx["warp_scene"], os.path.join(ctx["work_dir"], "volume_run")
     # Glossy as users run it, with the stage boundaries moved by the CLI's
     # own flags. Cuts: depth (100 steps), no surfel2 (indirect_from_iter past
@@ -2042,6 +2184,10 @@ def volume_phase(np, torch, dev, smi_line, ctx):
           "nearest render")
     check(launches["rasterize_tiles_fwd"] == want_fwd,
           f"rasterizer forward launched {launches['rasterize_tiles_fwd']} times, expected {want_fwd}")
+    ws_step = warp_launches_per_step(tr.opt)
+    check((launches["warp_sample_fwd"], launches["warp_sample_bwd"]) == (ws_step[0] * n_warp, ws_step[1] * n_warp),
+          f"the warp sampler launched {launches['warp_sample_fwd']} gathers and {launches['warp_sample_bwd']} "
+          f"splats in {n_warp} warp steps, expected {ws_step} a step")
     psnr = [m["psnr"] for m in log[:n_vol]]
     first, last = float(np.mean(psnr[:5])), float(np.mean(psnr[-5:]))
     print("  volume window train PSNR rise (mean of the 5 steps ending at step k minus the first 5): " + ", ".join(
@@ -2131,6 +2277,7 @@ def main() -> int:
     from materialrefgs_torch.models.gaussian_model import PARAM_SHAPES, GaussianModel
     from materialrefgs_torch.models.scene import Scene
     from materialrefgs_torch.ops import nvcc
+    from materialrefgs_torch.ops import warp_sample as ws
     from materialrefgs_torch.ops.rasterize import api, tiles_bwd, tiles_fwd
     from materialrefgs_torch.ops.rasterize.layout import ROW_LIN, acc_channels, out_layout
     from materialrefgs_torch.ops.tracer import api as tracer_api
@@ -2163,13 +2310,13 @@ def main() -> int:
     from materialrefgs_torch.data import native_io
     from materialrefgs_torch.utils import jpeg
 
-    sources = (tiles_fwd.SOURCE, tiles_bwd.SOURCE, trace_fwd.SOURCE, trace_bwd.SOURCE, jpeg.SOURCE,
+    sources = (tiles_fwd.SOURCE, tiles_bwd.SOURCE, trace_fwd.SOURCE, trace_bwd.SOURCE, jpeg.SOURCE, ws.SOURCE,
                jpeg.ENTROPY_SOURCE, native_io.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
-    print(f"5 kernels (nvcc) and 2 host sources (c++) built in {time.perf_counter() - t0:.1f} s (one compiler per "
-          "source, in parallel)")
+    print(f"6 kernel sources (nvcc; the warp sampler's holds its gather and its splat) and 2 host sources (c++) built "
+          f"in {time.perf_counter() - t0:.1f} s (one compiler per source, in parallel)")
     for lib_path, log in builds:
         print(f"{os.path.relpath(lib_path, REPO)}:")
         print(log.strip() or "(already built)")
@@ -3160,7 +3307,8 @@ def main() -> int:
               "--log_every", "1"]
     print("  (a) python scripts/train_torch.py " + " ".join(a_argv))
     torch.cuda.reset_peak_memory_stats()
-    for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn):
+    warp_fns = (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn, ws.warp_sample_fwd, ws.warp_sample_bwd)
+    for fn in warp_fns:
         fn.launches = 0  # counts of this path's run only
     mesh_res = Trainer.MESH_RESOLUTION
     Trainer.MESH_RESOLUTION = WARP_MESH_RES
@@ -3171,7 +3319,7 @@ def main() -> int:
         Trainer.MESH_RESOLUTION = mesh_res
     torch.cuda.synchronize()
     a_s = time.perf_counter() - t0
-    a_launches = {fn.__name__: fn.launches for fn in (kernel_fn, bwd_fn, trace_fn, trace_bwd_fn)}
+    a_launches = {fn.__name__: fn.launches for fn in warp_fns}
     a_peak = torch.cuda.max_memory_allocated() / 2**30
     a_tr = a_res["trainer"]
     a_log = a_tr.metrics_log
@@ -3204,6 +3352,10 @@ def main() -> int:
     check(a_launches["trace_bundles_fwd"] == n_a + a_redo, f"tracer forward launched {a_launches['trace_bundles_fwd']} "
           f"times for {n_a} steps + {a_redo} redone renders")
     check(all(n > 0 for n in a_launches.values()), "a kernel of the warp path never launched")
+    ws_step = warp_launches_per_step(a_tr.opt)
+    check((a_launches["warp_sample_fwd"], a_launches["warp_sample_bwd"]) == (ws_step[0] * n_warp, ws_step[1] * n_warp),
+          f"the warp sampler launched {a_launches['warp_sample_fwd']} gathers and {a_launches['warp_sample_bwd']} "
+          f"splats in {n_warp} warp steps, expected {ws_step} a step")
     a_wall = [(b["iteration"], b["wall"] - a["wall"]) for a, b in zip(a_log, a_log[1:]) if b["renders_redone"] == 0]
     before = sorted(w for it, w in a_wall if it <= gate)
     after = sorted(w for it, w in a_wall if it > gate + 1)
@@ -3299,6 +3451,11 @@ def main() -> int:
         check((prof_on["fwd"], prof_on["bwd"]) == (2, 2) and (prof_off["fwd"], prof_off["bwd"]) == (1, 1),
               f"rasterizer launches per paired step: off {prof_off['fwd']}+{prof_off['bwd']}, "
               f"on {prof_on['fwd']}+{prof_on['bwd']}")
+    # The warp sampler's kernels at a paired warp step's calls (view 0).
+    wcap = capture_warp(torch, lambda: paired_step(pair_views[0], pairs[pair_views[0]]["near"], True))
+    check(len(wcap) == ws_step[1], f"the captured warp step made {len(wcap)} sampler backward calls, not {ws_step[1]}")
+    warp_a = warp_sample_at(np, torch, wcap, f"phase 15's paired warp step (view {pair_views[0]})")
+    del wcap
     a_tr.state = snap
     del snap
     pair_host = sorted(d for v in pairs.values() for d in v["diffs"])
@@ -3386,6 +3543,12 @@ def main() -> int:
     # run and phase 20's volume run; the tracer rows refreal's and --dp 1's.
     raster_launches = {k: real["launches"][k] + p17["a_launches"][k] + p17["b_launches"][k] + dp_launches[k]
                        + p20["launches"][k] for k in ("rasterize_tiles_fwd", "rasterize_tiles_bwd")}
+    # The warp sampler's rows: the launches of the three warp runs whose
+    # counts are checked (phase 15 (a), phase 16 (b), phase 20), times and
+    # bounds at phase 15's paired step (refnerf's base colour, 800x800x3).
+    rw_ = real["warp"]
+    warp_launches = {k: a_launches[k] + real["launches"][k] + p20["launches"][k]
+                     for k in ("warp_sample_fwd", "warp_sample_bwd")}
 
     record = {"kernels": [
         {
@@ -3455,6 +3618,20 @@ def main() -> int:
             "bound_by": jp["by"],
             "library_ms": None,
         },
+    ] + [
+        {
+            "name": f"warp_sample_{k}",
+            "route": "cuda",
+            "source": "materialrefgs_torch/csrc/warp_sample.cu",
+            "replaces": "materialrefgs_tpu/train/warp.py:24",
+            "launches": warp_launches[f"warp_sample_{k}"],
+            "max_abs_err": max(warp_a[k]["err"], rw_[k]["err"]),
+            "ms": warp_a[k]["ms"],
+            "plain_ms": warp_a[k]["plain_ms"],
+            "bound_ms": warp_a[k]["bound"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        } for k in ("fwd", "bwd")
     ]}
     print(f"serve path launches: forward {launches}; training path launches: forward {train_fwd}, "
           f"backward {train_bwd}; env-GS serve path launches: tracer {trace_launches} ("
@@ -3475,6 +3652,13 @@ def main() -> int:
           f"{rv_['bwd']['bound']:.4f}, plain {rv_['bwd']['plain_ms']:.1f}, largest err/tol {rv_['bwd']['ratio']:.3e}); "
           f"host s/step {p20['step_s']}; volume-window train PSNR {p20['psnr'][0]:.3f} -> {p20['psnr'][1]:.3f} dB; "
           f"served {p20['served'][0]:.3f} (volume) / {p20['served'][1]:.3f} (surfel) dB")
+    print(f"warp sampler at phase 15's paired step (refnerf, the largest call): gather {warp_a['fwd']['ms']:.4f} ms "
+          f"(bound {warp_a['fwd']['bound']:.4f}, plain {warp_a['fwd']['plain_ms']:.2f}), splat "
+          f"{warp_a['bwd']['ms']:.4f} ms (bound {warp_a['bwd']['bound']:.4f}, plain with its autograd backward "
+          f"{warp_a['bwd']['plain_ms']:.2f}, largest err/tol {warp_a['bwd']['ratio']:.3e}); at refreal's surfel2 step "
+          f"(phase 16 (c), the largest call): gather {rw_['fwd']['ms']:.4f} ms (bound {rw_['fwd']['bound']:.4f}, plain "
+          f"{rw_['fwd']['plain_ms']:.2f}), splat {rw_['bwd']['ms']:.4f} ms (bound {rw_['bwd']['bound']:.4f}, plain "
+          f"{rw_['bwd']['plain_ms']:.2f}, largest err/tol {rw_['bwd']['ratio']:.3e}); launches {warp_launches}")
     print(f"tracer at the surfel2 step (phase 14): forward {f_ms:.4f} ms, bound {f_bound:.4f} ms, plain "
           f"{f_plain_ms:.1f} ms; backward {s_ms:.4f} ms, bound {s_bound:.4f} ms, plain {s_plain_ms:.1f} ms")
     print(f"refreal at 1236x821 (phase 16 (c)): rasterizer forward {rr_['fwd']['ms']:.4f} ms (bound "

@@ -10,7 +10,9 @@ Pipeline (the JAX package's api.rasterize):
 Step 4 keeps the payload gather and both kernels under one autograd
 boundary, as the JAX package's `_render_pairs` custom VJP does: the forward
 gathers the (C_PAD, B) pair payload from the (C_PAD, P) per-gaussian table
-and runs `tiles_fwd.rasterize_tiles_fwd`; the backward runs
+and runs `tiles_fwd.rasterize_tiles_fwd`; the backward gathers the pair
+payload again (it keeps the table, not the B-column payload: 2 GiB at a
+16M-pair budget, held across the step's backward otherwise), runs
 `tiles_bwd.rasterize_tiles_bwd` and reduces its per-pair gradients per
 gaussian with one `index_add_` (the JAX package's scatter-add, the CUDA
 reference's atomics). No sorted-pair cotangent reaches autograd.
@@ -104,7 +106,9 @@ def _gather_pairs(payload_g: torch.Tensor, g_sorted: torch.Tensor) -> torch.Tens
 
 
 class _RenderPairs(torch.autograd.Function):
-    """Pair gather + both tile kernels under one autograd boundary."""
+    """Pair gather + both tile kernels under one autograd boundary. Saves
+    the per-gaussian table, not the pair payload gathered from it: the
+    backward gathers the same columns again."""
 
     @staticmethod
     def forward(ctx, payload_g, g_sorted, tile_start, tile_count, S, grid_x, grid_y, W, H, row0=0):
@@ -112,7 +116,7 @@ class _RenderPairs(torch.autograd.Function):
         out = rasterize_tiles_fwd(
             pp, tile_start, tile_count, S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0
         )
-        ctx.save_for_backward(pp, g_sorted, tile_start, tile_count, out)
+        ctx.save_for_backward(payload_g, g_sorted, tile_start, tile_count, out)
         ctx.dims = (S, grid_x, grid_y, W, H, row0, payload_g.shape[1])
         return out
 
@@ -125,18 +129,18 @@ class _RenderPairs(torch.autograd.Function):
                 "rasterize supports first-order gradients only (the tile "
                 "backward kernel is not itself differentiable)"
             )
-        pp, g_sorted, tile_start, tile_count, fwd_out = ctx.saved_tensors
+        payload_g, g_sorted, tile_start, tile_count, fwd_out = ctx.saved_tensors
         S, grid_x, grid_y, W, H, row0, P = ctx.dims
         n_contrib = fwd_out[..., out_layout(S)["n_contrib"][0]]  # (T, 256)
         tile_active = torch.amax(n_contrib, dim=1).to(torch.int32)
         dpair = rasterize_tiles_bwd(
-            pp, tile_start, tile_count, tile_active, fwd_out, g.contiguous(),
+            _gather_pairs(payload_g, g_sorted), tile_start, tile_count, tile_active, fwd_out, g.contiguous(),
             S=S, grid_x=grid_x, grid_y=grid_y, W=W, H=H, row0=row0,
         )
         acc = torch.zeros((P, grad_rows(S)), dtype=dpair.dtype, device=dpair.device)
         acc.index_add_(0, g_sorted.to(torch.int64), dpair)
         # (C_PAD, P): the row_gid row and the padding rows carry no gradient.
-        dpg = torch.nn.functional.pad(acc, (0, pp.shape[0] - grad_rows(S))).T
+        dpg = torch.nn.functional.pad(acc, (0, payload_g.shape[0] - grad_rows(S))).T
         return dpg, None, None, None, None, None, None, None, None, None
 
 

@@ -1,6 +1,8 @@
 """Multi-view consistency losses (the JAX package's train/warp.py; reference
 train_refnerf.py:414-745 calc_warp_loss and scene/gaussian_model.py:1081-1116
-depth helpers), as plain torch.
+depth helpers), as plain torch around one hand-written pair: the bilinear
+sampler `grid_sample` (ops/warp_sample.py), a CUDA gather and splat on the
+card and its plain torch expression on the CPU.
 
 The variable-size set of valid pixels becomes a fixed `sample_num` random
 choice with zero weights on invalid samples (masked means), as in the JAX
@@ -27,39 +29,10 @@ import torch.nn.functional as F
 
 from materialrefgs_torch.cameras import Camera
 from materialrefgs_torch.config import OptimizationParams
+from materialrefgs_torch.ops.warp_sample import grid_sample
 from materialrefgs_torch.train.losses import lncc, spatial_gradient
 from materialrefgs_torch.utils.logging_utils import spanned
-from materialrefgs_torch.utils.transforms import abs_, clip, normalize
-
-
-def grid_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample. img (H, W, C); coords (..., 2) in [-1, 1] (x, y).
-    Matches F.grid_sample(align_corners=True) in value, with zero padding
-    (out-of-bounds taps vanish: the warp's foreground min-mask relies on it),
-    but at an integer coordinate its weight takes jnp.clip's gradient, half
-    of F.grid_sample's."""
-    H, W = img.shape[:2]
-    x, y = coords[..., 0], coords[..., 1]
-    fx = (x + 1) * (W - 1) / 2
-    fy = (y + 1) * (H - 1) / 2
-    x0f = torch.floor(fx)
-    y0f = torch.floor(fy)
-    wx = clip(fx - x0f, 0.0, 1.0)[..., None]
-    wy = clip(fy - y0f, 0.0, 1.0)[..., None]
-
-    def tap(yf, xf):
-        ok = (xf >= 0) & (xf < W) & (yf >= 0) & (yf < H)
-        # A non-finite coordinate reads any texel: ok is False there, and the
-        # JAX package's float -> int conversion differs from torch's.
-        xi = torch.clamp(torch.nan_to_num(xf, nan=0.0), 0, W - 1).long()
-        yi = torch.clamp(torch.nan_to_num(yf, nan=0.0), 0, H - 1).long()
-        return img[yi, xi] * ok[..., None]
-
-    c00 = tap(y0f, x0f)
-    c01 = tap(y0f, x0f + 1)
-    c10 = tap(y0f + 1, x0f)
-    c11 = tap(y0f + 1, x0f + 1)
-    return c00 * (1 - wx) * (1 - wy) + c01 * wx * (1 - wy) + c10 * (1 - wx) * wy + c11 * wx * wy
+from materialrefgs_torch.utils.transforms import abs_, normalize
 
 
 def patch_offsets(h_patch_size: int, device=None) -> torch.Tensor:
