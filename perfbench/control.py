@@ -58,7 +58,7 @@ def readings(cell, seed: int, device, overrides: dict | None = None, faults=()) 
     def images(package, tf32):
         side = Side(package)
         with with_tf32(tf32), torch.no_grad():
-            srv = side.server_for(run.cfg, run.scene(), run.device)
+            srv = side.server_for(run.cfg, run.traffic, run.scene(), run.device)
             imgs = {i: to_uint8(side.serve_view(srv, i)[0]["render"]).cpu() for i in ids}
         del srv
         run.free()

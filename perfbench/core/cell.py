@@ -202,7 +202,7 @@ def train_cost(run: Run, snap: dict, views: list, it: int) -> dict:
         with _work(side) as work, torch.no_grad():
             pkg, _ = tr._step_fn(stage, warp_on).render(tr.state, tr.cameras[cam_id], extra, mesh)
         per_unit.append(_unit_cost(tr.state.model, tr.state.env_gs, scene.train[cam_id], work, backward=True,
-                                   alpha=pkg["rend_alpha"]))
+                                   alpha=pkg["rend_alpha"], stage=stage))
         del pkg
     del tr
     run.free()
@@ -228,10 +228,12 @@ class _work:
             m.WORK = None
 
 
-def _unit_cost(model, env_model, spec, work: dict, backward: bool, alpha: torch.Tensor) -> dict:
+def _unit_cost(model, env_model, spec, work: dict, backward: bool, alpha: torch.Tensor, stage: str) -> dict:
     """Operations and bounds of one step or view from its launch records;
     the gaussians a launch reads are those whose centre the view `spec`
-    sees (a warp's nearest view sees about as many)."""
+    sees (a warp's nearest view sees about as many). The stage's shading is
+    counted where it is done: per pixel in the deferred stages, per alive
+    gaussian in `volume`, nowhere in `initial` (its colours are SH)."""
     c = {"raster_fwd_s": 0.0, "raster_bwd_s": 0.0, "trace_fwd_s": 0.0, "trace_bwd_s": 0.0, "flops": 0.0}
     fx, fy, cx, cy = costmod.intrinsics(spec)
     n_in_view = costmod.gaussians_in_view(model.xyz.detach(), model.alive, spec.center, spec.R.T, fx, fy, cx, cy,
@@ -252,10 +254,11 @@ def _unit_cost(model, env_model, spec, work: dict, backward: bool, alpha: torch.
             c["trace_bwd_s"] += costmod.bound_s(lc["bwd_flops"], lc["bwd_bytes"])
             c["flops"] += lc["bwd_flops"]
     pix = int(alpha.shape[0] * alpha.shape[1])
-    per_pixel = costmod.SHADE_FLOPS_PER_PIXEL
+    shaded = {"initial": 0, "volume": int(model.alive.sum())}.get(stage, pix)
+    flops = costmod.SHADE_FLOPS_PER_PIXEL * shaded
     if backward:
-        per_pixel = (costmod.SHADE_FLOPS_PER_PIXEL + costmod.LOSS_FLOPS_PER_PIXEL) * (1 + costmod.BACKWARD_FACTOR)
-    c["flops"] += per_pixel * pix
+        flops = (flops + costmod.LOSS_FLOPS_PER_PIXEL * pix) * (1 + costmod.BACKWARD_FACTOR)
+    c["flops"] += flops
     return c
 
 
@@ -267,7 +270,7 @@ def _mean_cost(units: list) -> dict:
 def run_serve(run: Run) -> None:
     prog = Side(PROGRAM)
     scene = run.scene()
-    srv = prog.server_for(run.cfg, scene, run.device)
+    srv = prog.server_for(run.cfg, run.traffic, scene, run.device)
     n_views = len(srv["cameras"])
     for v in range(int(run.traffic["warmup_views"])):
         pkg, _ = prog.serve_view(srv, v)
@@ -329,7 +332,7 @@ def run_serve(run: Run) -> None:
     served.clear()
     ref_side = Side(REFERENCE)
     ref_scene = run.scene()
-    ref_srv = ref_side.server_for(run.cfg, ref_scene, run.device)
+    ref_srv = ref_side.server_for(run.cfg, run.traffic, ref_scene, run.device)
     theirs, per_unit = {}, []
     for i in ids:
         with _work(ref_side) as work, torch.no_grad():
@@ -337,7 +340,7 @@ def run_serve(run: Run) -> None:
         theirs[i] = to_uint8(pkg["render"]).cpu()
         if len(per_unit) < int(run.traffic["cost_views"]):
             per_unit.append(_unit_cost(ref_srv["model"], ref_srv["env_model"], ref_scene.test[i], work,
-                                       backward=False, alpha=pkg["rend_alpha"]))
+                                       backward=False, alpha=pkg["rend_alpha"], stage=ref_srv["stage"]))
         del pkg
     del ref_srv
     run.free()

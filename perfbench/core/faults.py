@@ -9,6 +9,10 @@ replaces one function of the program:
   (half of the batch left out, the mean taken over the rest);
 - altered_pixel: one served pixel is altered where it is produced;
 - half_view: half of a served view's rows are left out (zero).
+
+A served view's render is altered in each renderer a serve stage calls.
+Every module of the program is imported before a render is replaced, so
+that none binds the altered function by name and keeps it after the undo.
 """
 from __future__ import annotations
 
@@ -54,16 +58,21 @@ def half_batch(patch):
 
 
 def _served(patch, change):
-    from materialrefgs_torch.render import envgs
+    from perfbench.core.system import PROGRAM, Side
 
-    real = envgs.render_surfel2
+    side = Side(PROGRAM)
 
-    def altered(*a, **kw):
-        pkg = real(*a, **kw)
-        pkg["render"] = change(pkg["render"].clone())
-        return pkg
+    def altered(real):
+        def render(*a, **kw):
+            pkg = real(*a, **kw)
+            pkg["render"] = change(pkg["render"].clone())
+            return pkg
 
-    patch(envgs, "render_surfel2", altered)
+        return render
+
+    patch(side.envgs, "render_surfel2", altered(side.envgs.render_surfel2))
+    for name in ("render_initial", "render_volume", "render_surfel"):
+        patch(side.renderers, name, altered(getattr(side.renderers, name)))
 
 
 def altered_pixel(patch):

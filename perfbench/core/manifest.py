@@ -8,6 +8,8 @@ import importlib.util
 import json
 import os
 
+from perfbench.core.system import check_cell
+
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 
@@ -45,6 +47,7 @@ class Cell:
         self.chips = int(self.workload["chips"])
         self.config = load_json("configs", self.workload["config"], bench_dir)
         self.traffic = load_json("traffic", self.workload["traffic"], bench_dir)
+        check_cell(self.config, self.traffic)
         # The limits of the comparison that decides `correct`, per cell.
         self.limits = load_json("limits", workload, bench_dir)
         self.end_to_end = [m for m in manifest["end_to_end"] if self._reports(m, manifest)]

@@ -61,6 +61,7 @@ class Scene:
     main: dict  # name -> (capacity, ...) float32 tensor on the device
     main_alive: torch.Tensor
     env1: torch.Tensor  # (6, R, R, 3) cubemap logits
+    env2: torch.Tensor | None = None  # the volume stage's cubemap, where the configuration seeds it
     env: dict | None = None  # the environment cloud's raw parameters
     env_alive: torch.Tensor | None = None
     mesh: tuple | None = None  # (vertices (V, 3) float32, triangles (T, 3) int32), numpy
@@ -325,9 +326,10 @@ def render_sphere(cam: CameraSpec, white_background: bool, device) -> dict:
 
 
 def make_scene(cfg: dict, traffic: dict, seed: int, device) -> Scene:
-    """The cell's inputs from `seed`: the clouds' values from one generator
-    on the device, their geometry fixed and dealt in the seed's order; the
-    cameras, mesh and ground truth fixed by the configuration."""
+    """The cell's inputs from `seed`: the clouds' values and the cubemaps
+    (env1, and env2 where `assumed.env2` is "seeded") from one generator on
+    the device, the clouds' geometry fixed and dealt in the seed's order;
+    the cameras, mesh and ground truth fixed by the configuration."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     fixed = torch.Generator(device=device)
@@ -339,6 +341,10 @@ def make_scene(cfg: dict, traffic: dict, seed: int, device) -> Scene:
     scene = Scene(main=main, main_alive=main_alive, env1=env1)
     if a.get("env_splats"):
         scene.env, scene.env_alive = env_cloud(fixed, gen, int(a["env_splats"]), cap, device)
+    if a.get("env2") == "seeded":
+        # Drawn after every other draw, so that a configuration without it
+        # gets the same inputs as before it existed.
+        scene.env2 = _normal(gen, env1.shape, device)
     if a.get("mesh_triangles"):
         sub = round(math.log(int(a["mesh_triangles"]) / 20, 4))
         scene.mesh = bumpy_mesh(sub)

@@ -5,12 +5,41 @@ builder serves both; it is handed the package's name."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 
 import torch
 
 PROGRAM = "materialrefgs_torch"
 REFERENCE = "perfbench.reference.plain"
+# The groups a preset returns, in its order, as a configuration's
+# `preset_overrides` names them.
+PRESET_GROUPS = ("model", "pipe", "opt")
+# What a serve mix's `stage` may name (evaluate.render_set's stages, with the
+# env-GS render apart); `surfel2` when it names none.
+SERVE_STAGES = ("initial", "volume", "surfel", "surfel2")
+
+
+def check_cell(cfg: dict, traffic: dict) -> None:
+    """Reject, before any run, what a configuration or a traffic mix asks for
+    that no side can do: an override of a field that a preset's dataclass
+    lacks (in either package), an `env2` other than "seeded", a serve stage
+    not in SERVE_STAGES."""
+    over = cfg.get("preset_overrides", {})
+    errors = [f"preset_overrides.{g}: no such group (one of {', '.join(PRESET_GROUPS)})"
+              for g in sorted(set(over) - set(PRESET_GROUPS))]
+    for package in (PROGRAM, REFERENCE):
+        groups = getattr(importlib.import_module(f"{package}.config"), f"preset_{cfg['preset']}")()
+        for key, group in zip(PRESET_GROUPS, groups):
+            names = {f.name for f in dataclasses.fields(group)}
+            errors += [f"preset_overrides.{key}.{k}: {package}'s {type(group).__name__} has no such field"
+                       for k in sorted(set(over.get(key, {})) - names)]
+    if cfg.get("assumed", {}).get("env2", "seeded") != "seeded":
+        errors.append(f"assumed.env2: {cfg['assumed']['env2']!r} (the one choice is \"seeded\")")
+    if traffic["kind"] == "serve" and traffic.get("stage", "surfel2") not in SERVE_STAGES:
+        errors.append(f"stage: {traffic['stage']!r} is not one of {', '.join(SERVE_STAGES)}")
+    if errors:
+        raise ValueError(f"configuration {cfg.get('name')!r}: " + "; ".join(errors))
 
 
 class Side:
@@ -33,8 +62,12 @@ class Side:
         self.optim = mod("train.optim")
 
     def preset(self, cfg: dict):
-        model_params, pipe, opt = getattr(self.config, f"preset_{cfg['preset']}")()
-        return model_params, pipe, opt
+        """The configuration's preset, with the fields its `preset_overrides`
+        sets replaced."""
+        groups = getattr(self.config, f"preset_{cfg['preset']}")()
+        over = cfg.get("preset_overrides", {})
+        return tuple(dataclasses.replace(group, **over[key]) if over.get(key) else group
+                     for key, group in zip(PRESET_GROUPS, groups))
 
     def camera(self, spec, device):
         return self.cameras.make_camera(spec.R, spec.T, spec.fovx, spec.fovy, spec.width, spec.height,
@@ -91,6 +124,8 @@ class Side:
         st = tr.state
         with torch.no_grad():
             st.env1.base.copy_(scene.env1)
+            if scene.env2 is not None:
+                st.env2.base.copy_(scene.env2)
         st.step = int(traffic["start_iteration"]) - 1
         if scene.env is not None:
             st.env_gs = self.model(scene.env, scene.env_alive, sh, device)
@@ -99,22 +134,32 @@ class Side:
             tr.mesh = self.mesh(scene, device)
         return tr
 
-    def server_for(self, cfg: dict, scene, device) -> dict:
-        """What scripts/eval_torch.py serves: the surfel2 model (main cloud,
-        environment cloud, cubemap mips, mesh) and its render options."""
+    def server_for(self, cfg: dict, traffic: dict, scene, device) -> dict:
+        """What scripts/eval_torch.py serves at the traffic's `stage`: the
+        model and the cubemap mips its stage shades with (env2's for `volume`
+        where the scene has one, as a volume checkpoint that saved it, else
+        env1's; none for `initial`), and for `surfel2` also the environment
+        cloud, the mesh and the tracer's budgets."""
+        stage = traffic.get("stage", "surfel2")
         model_params, _, _ = self.preset(cfg)
         sh = int(cfg["sh_degree"])
         a = cfg["assumed"]
+        traced = stage == "surfel2"
+        # Made in this order, as before stages existed: the order of the
+        # allocations sets the allocator's blocks, and so the peak it reads.
         model = self.model(scene.main, scene.main_alive, sh, device)
-        env_model = self.model(scene.env, scene.env_alive, sh, device)
-        env = self.env_light.EnvLightParams(scene.env1.clone())
-        with torch.no_grad():
-            mips = self.env_light.EnvLightMips.build(env, min_roughness=model_params.envmap_min_roughness,
-                                                     max_roughness=model_params.envmap_max_roughness)
+        env_model = self.model(scene.env, scene.env_alive, sh, device) if traced else None
+        mips = None
+        if stage != "initial":
+            base = scene.env2 if stage == "volume" and scene.env2 is not None else scene.env1
+            env = self.env_light.EnvLightParams(base.clone())
+            with torch.no_grad():
+                mips = self.env_light.EnvLightMips.build(env, min_roughness=model_params.envmap_min_roughness,
+                                                         max_roughness=model_params.envmap_max_roughness)
         pairs = int(a["pair_capacity"])
         return {
-            "model": model, "env_model": env_model, "mips": mips,
-            "mesh": self.mesh(scene, device) if scene.mesh is not None else None,
+            "stage": stage, "model": model, "env_model": env_model, "mips": mips,
+            "mesh": self.mesh(scene, device) if traced and scene.mesh is not None else None,
             "cameras": [self.camera(c, device) for c in scene.test],
             "bg": torch.full((3,), 1.0 if cfg["white_background"] else 0.0, device=device),
             "opts": self.renderers.RenderOptions(raster=self.raster_api.RasterizeConfig(pair_capacity=pairs)),
@@ -122,17 +167,25 @@ class Side:
             # 16384 cluster pairs; a view that overflows is redone.
             "tracer_cfg": self.tracer_api.TracerConfig(pair_capacity=int(a.get("tracer_pair_capacity", pairs)),
                                                        cluster_pair_capacity=1 << 14, mesh_cull_cap=512,
-                                                       exact_order=True),
+                                                       exact_order=True) if traced else None,
         }
 
     def serve_view(self, srv: dict, cam_id: int) -> tuple[dict, int]:
-        """One served view as evaluate.render_set renders it: render_surfel2
-        with the mesh, redone (at most twice) with budgets that fit when its
-        traces overflow; the budgets are kept for later views. Returns the
-        render and the number of redos."""
+        """One served view as evaluate.render_set renders it at the server's
+        stage. `surfel2`: render_surfel2 with the mesh, redone (at most
+        twice) with budgets that fit when its traces overflow; the budgets
+        are kept for later views. Returns the render and the number of
+        redos."""
         cam = srv["cameras"][cam_id]
+        model, bg, opts = srv["model"], srv["bg"], srv["opts"]
+        if srv["stage"] == "initial":
+            return self.renderers.render_initial(model, cam, bg, opts), 0
+        if srv["stage"] == "volume":
+            return self.renderers.render_volume(model, cam, bg, srv["mips"], opts), 0
+        if srv["stage"] == "surfel":
+            return self.renderers.render_surfel(model, cam, bg, srv["mips"], opts), 0
         run = lambda cfg: self.envgs.render_surfel2(  # noqa: E731
-            srv["model"], srv["env_model"], cam, srv["bg"], srv["mips"], srv["opts"], cfg, mesh=srv["mesh"])
+            model, srv["env_model"], cam, bg, srv["mips"], opts, cfg, mesh=srv["mesh"])
         pkg = run(srv["tracer_cfg"])
         redos = 0
         for _ in range(2):

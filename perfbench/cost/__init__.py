@@ -101,7 +101,8 @@ TRACE_OUT_FLOATS = 16
 # Deferred shading of a surfel view: normal normalisation (9), the view and
 # reflected directions (15), two cubemap lookups with bilinear and mip blend
 # (2 x 40), the split-sum BRDF LUT fetch and fresnel (20), diffuse + specular
-# composite (12), sRGB (3 x 6): 154.
+# composite (12), sRGB (3 x 6): 154. The volume stage does this arithmetic
+# once per alive gaussian instead, and `initial` not at all (core/cell.py).
 SHADE_FLOPS_PER_PIXEL = 154
 # The photometric loss: L1 (3 x 3), SSIM's five 11x11 separable Gaussian
 # moments per channel (5 x 2 x 11 x 2 x 3 = 660) and its per-pixel formula

@@ -17,6 +17,6 @@ M = load_manifest(ROOT)
 def test_control_fails_and_program_passes(workload, cuda):
     cell = Cell(M, workload)
     for seed in (2**31 + 1, 2**31 + 2, 2**31 + 3):
-        r = readings(cell, seed, cuda, overrides=tiny(workload))
+        r = readings(cell, seed, cuda, overrides=tiny(cell))
         assert any(v > cell.limits[k] for k, v in r["control"].items()), r
         assert all(v <= cell.limits[k] for k, v in r["program"].items()), r

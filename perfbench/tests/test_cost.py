@@ -69,3 +69,23 @@ def test_tracer_contribs_exact():
 @pytest.mark.parametrize("flops,n_bytes,expect", [(67e12, 0.0, 1.0), (0.0, 3.35e12, 1.0), (67e9, 6.7e9, 2e-3)])
 def test_bound_is_the_larger_side(flops, n_bytes, expect):
     assert cost.bound_s(flops, n_bytes) == pytest.approx(expect)
+
+
+@pytest.mark.parametrize("stage,shaded", [("surfel2", 128), ("surfel", 128), ("volume", 7), ("initial", 0)])
+def test_shading_counted_where_the_stage_does_it(stage, shaded):
+    """A step or view of 8x16 pixels and 7 alive gaussians, with no kernel
+    launch recorded: the deferred stages shade each pixel, `volume` each
+    alive gaussian, `initial` nothing; the loss is per pixel either way."""
+    from types import SimpleNamespace
+
+    from perfbench.core.cell import _unit_cost
+    from perfbench.core.scene import blender_cameras
+
+    spec = blender_cameras([np.array([0.0, 0.0, 4.0])], 16, 8, 0.7)[0]
+    model = SimpleNamespace(xyz=torch.zeros(10, 3), alive=torch.arange(10) < 7)
+    no_launches = {"raster": {}, "trace": {}}
+    view = _unit_cost(model, None, spec, no_launches, False, torch.ones(8, 16, 1), stage)
+    step = _unit_cost(model, None, spec, no_launches, True, torch.ones(8, 16, 1), stage)
+    assert view["flops"] == cost.SHADE_FLOPS_PER_PIXEL * shaded
+    assert step["flops"] == ((cost.SHADE_FLOPS_PER_PIXEL * shaded + cost.LOSS_FLOPS_PER_PIXEL * 128)
+                             * (1 + cost.BACKWARD_FACTOR))

@@ -28,5 +28,6 @@ CASES = [(w, f) for w in TRAIN for f in TRAIN_FAULTS] + [(w, f) for w in SERVE f
 def test_fault_fails_the_comparison(workload, fault, monkeypatch):
     torch.set_num_threads(2)
     fault(monkeypatch.setattr)
-    run = run_cell(Cell(M, workload), 2**31 + 777, 0.2, False, "cpu", time.perf_counter(), tiny(workload))
+    cell = Cell(M, workload)
+    run = run_cell(cell, 2**31 + 777, 0.2, False, "cpu", time.perf_counter(), tiny(cell))
     assert not correct(run.checks), run.checks

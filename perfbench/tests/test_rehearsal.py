@@ -28,7 +28,7 @@ def few_threads():
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_cpu_rehearsal(workload, trace):
     cell = Cell(load_manifest(ROOT), workload)
-    run = run_cell(cell, 2**31 + 12345, 0.5, bool(trace), "cpu", time.perf_counter(), tiny(workload))
+    run = run_cell(cell, 2**31 + 12345, 0.5, bool(trace), "cpu", time.perf_counter(), tiny(cell))
     line = json.loads(json.dumps(runmod.result_line(run, "cpu", 1)))
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(line)[-1] == "checks"
